@@ -1,0 +1,384 @@
+#!/usr/bin/env python3
+"""Chip smoke test of `rfdnet_tpu_torch` on one NVIDIA GPU (H100).
+
+Run from the repository root with no arguments: `python3 chip_smoke.py`.
+It needs one CUDA card and exits nonzero, printing no result, without one.
+Phases, each printing one JSON line; any failure ends the run nonzero:
+
+1. device: the card's name and power limit (`nvidia-smi`), then both
+   CUDA kernels built from `rfdnet_tpu_torch/csrc/` at once (`nvcc`).
+2. fps: the FPS kernel against its plain torch version at the five shapes
+   of the main path, on the 80000-point demo scene (indices equal).
+3. cbn_decode: the fused CBN decoder kernel against its plain version at
+   64 proposals x 32^3 points, f32 and bf16 operands.
+4. slice: the test config's generation path at full width through
+   `demo.generate` (80000 points, 256 proposals, 64 slots, 32^3 grids,
+   seeded weights), ten scenes after a warm-up; scene latency and
+   per-stage times (CUDA events) as mean, min and max; the launch count of
+   each kernel in the first timed scene (counts set to 0 just before it).
+5. reference: the same path on a 4096-point subsample, on the card and on
+   the CPU (plain versions), from the same seeded weights: the sampling
+   indices, NMS keep mask and selected proposals equal; detection floats,
+   skip-propagation features and grids within the stated tolerances.
+Then the `kernels` summary line, and as the last line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+`bound_ms` is the least time the card could take for a kernel's work: the
+larger of its bytes (inputs read once, outputs written once) over 3.35
+TB/s and its operations over the peak rate of their type (67 TFLOP/s f32
+outside the tensor cores, 989 TFLOP/s bf16), NVIDIA's H100 SXM figures.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SCENE = os.path.join(ROOT, "demo", "outputs", "synthetic_room",
+                     "synthetic_room.off")
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+
+
+def emit(**fields) -> None:
+    print(json.dumps(fields), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds of fn() over reps, from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, flops: float, peak: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def slice_setup(dev):
+    """The main path's inputs: the test config, the 80000-point demo scene
+    and the model with seeded weights, on `dev`."""
+    from rfdnet_tpu_torch import config, demo, weights
+
+    cfg = config.TEST_CONFIG
+    data = demo.load_demo_data(SCENE, num_points=cfg["data"]["num_point"],
+                               device=dev)
+    model = weights.init_seeded(config.build_model(cfg, device=dev), SEED)
+    return cfg, data, model
+
+
+def phase_device():
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    from rfdnet_tpu_torch.ops import _native
+
+    t0 = time.perf_counter()
+    logs = _native.build()
+    ptxas = {name: [l.strip() for l in log.splitlines()
+                    if "registers" in l or "spill" in l]
+             for name, log in logs.items()}
+    emit(phase="device", nvidia_smi=smi,
+         build_s=round(time.perf_counter() - t0, 3), ptxas=ptxas)
+
+
+def fps_inputs(xyz):
+    """The five FPS inputs of the main path: SA1-4 (each sampling the
+    previous layer's samples) and seed_fps over the 1024 seeds."""
+    from rfdnet_tpu_torch.ops import furthest_point_sample, gather_points
+
+    shapes = [(2048, "sa1"), (1024, "sa2"), (512, "sa3"), (256, "sa4")]
+    out, cur = [], xyz
+    for npoint, name in shapes:
+        out.append((name, cur, npoint))
+        cur = gather_points(cur, furthest_point_sample(cur, npoint)).contiguous()
+        if name == "sa2":
+            seeds = cur
+    out.append(("seed_fps", seeds, 256))
+    return out
+
+
+def phase_fps(xyz, reps: int = 3):
+    from rfdnet_tpu_torch.ops.fps import fps_plain, furthest_point_sample
+
+    rows = []
+    for name, pts, npoint in fps_inputs(xyz):
+        k = furthest_point_sample(pts, npoint)
+        p = fps_plain(pts, npoint)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(k, p))
+        N = pts.shape[1]
+        # per step and point: 3 sub, 3 mul, 2 add, 1 min, 1 compare
+        b, by = bound_ms(N * 12 + npoint * 4, 10.0 * N * (npoint - 1),
+                         F32_FLOPS)
+        rows.append(dict(
+            name=name, n=N, npoint=npoint, equal=equal,
+            max_abs_err=int((k.long() - p.long()).abs().max()),
+            ms=cuda_ms(lambda: furthest_point_sample(pts, npoint), reps),
+            plain_ms=cuda_ms(lambda: fps_plain(pts, npoint), 1, 0),
+            bound_ms=b, bound_by=by,
+        ))
+        check(equal, f"fps {name}: kernel indices differ from the plain version")
+    emit(phase="fps", shapes=rows)
+    return rows
+
+
+def library_chain(h0, sc, sh, w0s, b0s, w1s, b1s, w_out, b_out, dtype):
+    """The decode chain with each 256x256 product one cuBLAS call in the
+    working dtype (bf16 tensor cores in the bf16 mode): the yardstick."""
+    h = h0.to(dtype)
+    sc, sh = sc.to(dtype)[:, :, None, :], sh.to(dtype)[:, :, None, :]
+    w0, w1 = w0s.to(dtype), w1s.to(dtype)
+    for i in range(5):
+        t = torch.relu(h * sc[:, 2 * i] + sh[:, 2 * i])
+        t = torch.relu((t @ w0[i] + b0s[i].to(dtype)) * sc[:, 2 * i + 1]
+                       + sh[:, 2 * i + 1])
+        h = h + (t @ w1[i] + b1s[i].to(dtype))
+    hf = torch.relu(h * sc[:, 10] + sh[:, 10]).float()
+    return hf @ w_out + b_out
+
+
+def decoder_operands(model, nb: int, res: int, dev):
+    """The fused decoder's operands for nb proposals over the res^3 grid,
+    as `ONet.decode_fused` builds them, with seeded conditioning codes."""
+    from rfdnet_tpu_torch.models.occnet import make_3d_grid
+
+    onet = model.completion
+    g = torch.Generator().manual_seed(SEED + 1)
+    c = (torch.randn(nb, 512, generator=g) * 0.5).to(dev)
+    pts = 1.1 * make_3d_grid((-0.5,) * 3, (0.5,) * 3, (res,) * 3, device=dev)
+    z = torch.zeros(nb, onet.z_dim, device=dev)
+    with torch.no_grad():
+        return onet.fused_operands(pts[None].expand(nb, -1, -1), z, c)
+
+
+def phase_cbn(model, dev, nb: int = 64, res: int = 32, reps: int = 3):
+    from rfdnet_tpu_torch.ops.cbn_decoder import cbn_decode_plain, fused_cbn_decode
+
+    ops = decoder_operands(model, nb, res, dev)
+    T = res ** 3
+    flops = 2.0 * nb * T * 10 * 256 * 256
+    nbytes = nb * T * 256 * 4 + nb * T * 4
+    rows, plain = {}, {}
+    for dname, dtype, peak in (("float32", torch.float32, F32_FLOPS),
+                               ("bfloat16", torch.bfloat16, BF16_FLOPS)):
+        k = fused_cbn_decode(*ops, mxu_dtype=dtype)
+        p = plain[dname] = cbn_decode_plain(*ops, mxu_dtype=dtype)
+        torch.cuda.synchronize()
+        err = float((k - p).abs().max())
+        scale = max(float(p.abs().max()), 1.0)
+        # f32: the same math, sums of 256 products in another order chained
+        # through 10 layers. bf16: the kernel and the plain version round
+        # at the same points, so they differ only where an f32 sum in
+        # another order lands on the other side of a bf16 rounding. Read
+        # on an H100: 1.2e-7 at scale 1 in both modes, with the bf16 chain
+        # 6.9e-3 from the f32 one. The bf16 limit stays below that gap,
+        # and the kernel must sit nearer the plain bf16 chain than the
+        # plain f32 one, which fails a kernel that skips the roundings.
+        tol = (1e-4 if dtype == torch.float32 else 1e-3) * scale
+        gap = (float((k - plain["float32"]).abs().max())
+               if dtype == torch.bfloat16 else None)
+        ok = err <= tol and (gap is None or err < gap)
+        b, by = bound_ms(nbytes, flops, peak)
+        rows[dname] = dict(
+            max_abs_err=err, tol=tol, scale=scale, err_vs_plain_f32=gap,
+            ms=cuda_ms(lambda: fused_cbn_decode(*ops, mxu_dtype=dtype),
+                       reps),
+            plain_ms=cuda_ms(lambda: cbn_decode_plain(
+                *ops, mxu_dtype=dtype), 1),
+            library_ms=cuda_ms(lambda: library_chain(*ops, dtype), reps),
+            bound_ms=b, bound_by=by,
+        )
+        check(ok, f"cbn_decode {dname}: kernel vs plain max err {err} > {tol}"
+                  f" or not below its distance to the f32 chain {gap}")
+    # a T that is no multiple of the kernel's 64-point tile: the wrapper pads
+    ragged = decoder_operands(model, 3, 10, dev)
+    err = float((fused_cbn_decode(*ragged) - cbn_decode_plain(*ragged))
+                .abs().max())
+    check(err <= 1e-4, f"cbn_decode at T=1000: kernel vs plain max err {err}")
+    emit(phase="cbn_decode", nb=nb, t=T, modes=rows, ragged_t1000_err=err)
+    return rows
+
+
+def phase_slice(model, data, cfg, scenes: int = 10):
+    """One warm-up scene, then `scenes` timed scenes one at a time (as the
+    test protocol runs them); the launch counts are those of the first
+    timed scene, and its outputs are the ones checked."""
+    from rfdnet_tpu_torch import demo
+    from rfdnet_tpu_torch.ops import furthest_point_sample, fused_cbn_decode
+
+    pc = data["point_clouds"]
+    demo.generate(cfg, model, pc)  # warm-up
+    torch.cuda.synchronize()
+    walls, stage_runs = [], []
+    t_window = time.perf_counter()
+    for i in range(scenes):
+        if i == 0:
+            furthest_point_sample.launches = 0
+            fused_cbn_decode.launches = 0
+        marks = []
+        t0 = time.perf_counter()
+        out = demo.generate(cfg, model, pc, marks=marks)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            launches = {"fps": furthest_point_sample.launches,
+                        "cbn_decode": fused_cbn_decode.launches}
+            _, parsed, gen, grids = out
+        stage_runs.append({name: marks[j - 1][1].elapsed_time(ev)
+                           for j, (name, ev) in enumerate(marks) if j})
+    window = (time.perf_counter() - t_window) * 1e3
+    stages = {name: {"mean": sum(r[name] for r in stage_runs) / scenes,
+                     "min": min(r[name] for r in stage_runs),
+                     "max": max(r[name] for r in stage_runs)}
+              for name in stage_runs[0]}
+    res = cfg["generation"]["resolution_0"]
+    emit(phase="slice", points=int(pc.shape[1]),
+         proposals=int(parsed["obj_prob"].shape[1]),
+         grids=list(grids.shape), finite=bool(torch.isfinite(grids).all()),
+         pred_mask=int(parsed["pred_mask"].sum()),
+         valid=int(gen["valid"].sum()), scenes=scenes,
+         wall_ms=window / scenes, wall_ms_min=min(walls),
+         wall_ms_max=max(walls), stage_ms=stages, launches=launches)
+    check(tuple(grids.shape) == (model.generate_limit, res, res, res),
+          f"grids shape {tuple(grids.shape)}")
+    check(bool(torch.isfinite(grids).all()), "non-finite grid logits")
+    check(launches == {"fps": 5, "cbn_decode": 1},
+          f"kernel launches on the main path: {launches}")
+    return launches
+
+
+def phase_reference(model, cfg, num_points: int = 4096):
+    """The whole path on a small input on the card and on the CPU (plain
+    versions), same weights. Index outputs are exact: the FPS chain's
+    sampling indices, the NMS keep mask, the selected proposal ids and
+    their valid flags. Detection floats use atol 3e-5, rtol 2e-4 (cuBLAS
+    and the CPU sum in other orders); the skip-propagation features and
+    the grids, ~30 chained layers on, atol 1e-4 * max(scale, 1), rtol
+    1e-3."""
+    import copy
+
+    from rfdnet_tpu_torch import demo
+    from rfdnet_tpu_torch.config import eval_config
+
+    dev = next(model.parameters()).device
+    pc = demo.load_demo_data(SCENE, num_points=num_points,
+                             device=dev)["point_clouds"]
+    ep, parsed, gen, grids = demo.generate(cfg, model, pc)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    pc_c = pc.cpu()
+    ep_c, parsed_c, gen_c, grids_c = demo.generate(cfg, cpu_model, pc_c)
+    errs = {}
+
+    def equal(name, got, want):
+        check(torch.equal(got.cpu(), want), f"reference {name} differ")
+
+    def close(name, got, want, atol, rtol):
+        got, want = got.detach().cpu().double(), want.detach().double()
+        errs[name] = float((got - want).abs().max())
+        check(bool(((got - want).abs() <= atol + rtol * want.abs()).all()),
+              f"reference {name}: max err {errs[name]}")
+
+    for k in ("sa1_inds", "sa2_inds", "fp2_inds", "aggregated_vote_inds"):
+        equal(k, ep[k], ep_c[k])
+    for k in ("sa1_features", "fp2_features", "vote_xyz", "center",
+              "objectness_scores", "sem_cls_scores"):
+        close(k, ep[k], ep_c[k], 3e-5, 2e-4)
+    close("obj_prob", parsed["obj_prob"], parsed_c["obj_prob"], 3e-5, 2e-4)
+    equal("pred_mask", parsed["pred_mask"], parsed_c["pred_mask"])
+    equal("proposal_ids", gen["proposal_ids"], gen_c["proposal_ids"])
+    equal("valid", gen["valid"], gen_c["valid"])
+    close("features", gen["features"], gen_c["features"],
+          1e-4 * max(float(gen_c["features"].abs().max()), 1.0), 1e-3)
+    close("grids", grids, grids_c,
+          1e-4 * max(float(grids_c.abs().max()), 1.0), 1e-3)
+    emit(phase="reference", points=num_points, max_abs_err=errs,
+         pred_mask=int(parsed_c["pred_mask"].sum()),
+         valid=int(gen_c["valid"].sum()))
+    return errs
+
+
+def kernel_summary(fps_rows, cbn_rows, launches):
+    """One entry per kernel of the main path: FPS summed over its five
+    main-path calls, the CBN decoder in the test config's f32 mode."""
+    f32 = cbn_rows["float32"]
+    return [
+        dict(name="fps", route="cuda", source="rfdnet_tpu_torch/csrc/fps.cu",
+             replaces="rfdnet_tpu/ops/fps.py:121", launches=launches["fps"],
+             max_abs_err=max(r["max_abs_err"] for r in fps_rows),
+             ms=sum(r["ms"] for r in fps_rows),
+             plain_ms=sum(r["plain_ms"] for r in fps_rows),
+             bound_ms=sum(r["bound_ms"] for r in fps_rows),
+             bound_by=fps_rows[0]["bound_by"], library_ms=None),
+        dict(name="cbn_decode", route="cuda",
+             source="rfdnet_tpu_torch/csrc/cbn_decoder.cu",
+             replaces="rfdnet_tpu/ops/cbn_decoder.py:160",
+             launches=launches["cbn_decode"], max_abs_err=f32["max_abs_err"],
+             ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+             bound_by=f32["bound_by"], library_ms=f32["library_ms"]),
+    ]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    try:
+        import rfdnet_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script: {e}",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    phase_device()
+
+    cfg, data, model = slice_setup(dev)
+    fps_rows = phase_fps(data["point_clouds"][..., :3].contiguous())
+    cbn_rows = phase_cbn(model, dev)
+    torch.cuda.empty_cache()
+    launches = phase_slice(model, data, cfg)
+    phase_reference(model, cfg)
+
+    print(json.dumps({"kernels": kernel_summary(fps_rows, cbn_rows,
+                                                launches)}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,272 @@
+"""ISCNet: detection + instance completion, the test-time generation path.
+
+Counterpart of `rfdnet_tpu/models/iscnet.py` (`detect`,
+`parse_predictions`, `generate_detections`, the demo branch of
+`generate_completion`, `generate` with `decode_grid_res`,
+`decode_occupancy`). The grid decode always goes through the fused CBN
+decoder (`ONet.decode_fused`, the CUDA kernel on the card). Variable-size
+results (NMS survivors, completed proposals) stay fixed-shape with
+validity masks, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops import (
+    class2angle,
+    class2size,
+    corners_to_aabb,
+    flip_axis_to_camera,
+    gather_points,
+    get_3d_box_batch,
+    nms_3d,
+)
+from .backbone import Pointnet2Backbone
+from .occnet import ONet, make_3d_grid
+from .proposal import ProposalModule
+from .skip_propagation import SkipPropagation
+from .voting import VotingModule
+
+
+def _mark(marks, name: str) -> None:
+    """Append (name, recorded CUDA event) to `marks` when it is a list:
+    the stage boundaries a caller times with `torch.cuda.Event`s."""
+    if marks is not None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+
+class ISCNet(nn.Module):
+    def __init__(self, num_class: int = 8, num_heading_bin: int = 12,
+                 num_size_cluster: int = 8, mean_size_arr=None,
+                 num_proposal: int = 256, vote_factor: int = 1,
+                 cluster_sampling: str = "seed_fps",
+                 input_feature_dim: int = 1, completion_feature_dim: int = 1,
+                 phase: str = "completion", skip_propagate: bool = True,
+                 c_dim: int = 512, hidden_dim: int = 512, z_dim: int = 32,
+                 use_cls_for_completion: bool = False,
+                 generate_limit: int = 64, decoder_bf16: bool = False):
+        super().__init__()
+        self.num_heading_bin = num_heading_bin
+        self.phase = phase
+        self.skip_propagate = skip_propagate
+        self.generate_limit = generate_limit
+        # dataset constant, not a weight: kept out of the state_dict
+        self.register_buffer("mean_size_arr", torch.as_tensor(
+            np.asarray(mean_size_arr), dtype=torch.float32), persistent=False)
+        self.backbone = Pointnet2Backbone(input_feature_dim)
+        self.voting = VotingModule(vote_factor=vote_factor)
+        self.detection = ProposalModule(
+            num_class=num_class, num_heading_bin=num_heading_bin,
+            num_size_cluster=num_size_cluster, num_proposal=num_proposal,
+            sampling=cluster_sampling,
+        )
+        if phase == "completion":
+            if skip_propagate:
+                self.skip_propagation = SkipPropagation(
+                    c_dim=c_dim, hidden_dim=hidden_dim,
+                    input_feature_dim=completion_feature_dim,
+                )
+            self.completion = ONet(
+                z_dim=z_dim,
+                c_dim=c_dim if skip_propagate else 128,
+                use_cls_for_completion=use_cls_for_completion,
+                num_class=num_class, decoder_bf16=decoder_bf16,
+            )
+
+    def detect(self, point_clouds, marks=None):
+        """backbone -> voting -> proposal. Returns (end_points,
+        proposal_features (B, K, 128))."""
+        end_points = self.backbone(point_clouds)
+        _mark(marks, "backbone")
+        xyz = end_points["fp2_xyz"]
+        features = end_points["fp2_features"]
+        end_points["seed_inds"] = end_points["fp2_inds"]
+        end_points["seed_xyz"] = xyz
+        end_points["seed_features"] = features
+        xyz, features = self.voting(xyz, features)
+        # L2-normalise, guarded against a zero norm
+        norm = torch.linalg.vector_norm(features, dim=-1, keepdim=True)
+        features = features / torch.clamp(norm, min=1e-8)
+        end_points["vote_xyz"] = xyz
+        end_points["vote_features"] = features
+        end_points, proposal_features = self.detection(xyz, features,
+                                                       end_points)
+        _mark(marks, "voting_proposal")
+        return end_points, proposal_features
+
+    def _heading_angles(self, end_points):
+        pred_heading_class = end_points["heading_scores"].argmax(dim=-1)
+        hr = end_points["heading_residuals_normalized"] * (
+            math.pi / self.num_heading_bin)
+        residual = torch.gather(hr, -1, pred_heading_class[..., None])[..., 0]
+        return class2angle(pred_heading_class, residual, self.num_heading_bin)
+
+    def generate_detections(self, point_clouds, nms_iou=0.25,
+                            use_cls_nms=True, remove_empty_box=False,
+                            marks=None):
+        """Eval detection + box decode + NMS -> (end_points,
+        proposal_features, parsed)."""
+        end_points, proposal_features = self.detect(point_clouds, marks)
+        parsed = self.parse_predictions(
+            end_points, nms_iou, use_cls_nms, point_clouds=point_clouds,
+            remove_empty_box=remove_empty_box,
+        )
+        _mark(marks, "nms")
+        return end_points, proposal_features, parsed
+
+    def _points_in_boxes(self, pc, centers, c, s, size, chunk: int = 32):
+        """Count of scene points inside each oriented box (the exact,
+        unenlarged half extents). pc (N, 3), centers (K, 3), c/s (K,)
+        heading cos/sin, size (K, 3) -> (K,)."""
+        parts = []
+        for k0 in range(0, centers.shape[0], chunk):
+            rel = pc[None, :, :] - centers[k0:k0 + chunk, None, :]
+            cc, ss = c[k0:k0 + chunk, None], s[k0:k0 + chunk, None]
+            half = size[k0:k0 + chunk, None, :] * 0.5
+            lx = cc * rel[..., 0] + ss * rel[..., 1]
+            ly = -ss * rel[..., 0] + cc * rel[..., 1]
+            inside = ((lx.abs() <= half[..., 0]) & (ly.abs() <= half[..., 1])
+                      & (rel[..., 2].abs() <= half[..., 2]))
+            parts.append(inside.sum(dim=-1))
+        return torch.cat(parts)
+
+    def parse_predictions(self, end_points, nms_iou=0.25, use_cls_nms=True,
+                          point_clouds=None, remove_empty_box=False):
+        heading_angles = self._heading_angles(end_points)
+        pred_size_class = end_points["size_scores"].argmax(dim=-1)
+        mean_sizes = self.mean_size_arr
+        size_residuals = (end_points["size_residuals_normalized"]
+                          * mean_sizes[None, None, :, :])
+        B, K = pred_size_class.shape
+        pred_size_residual = torch.gather(
+            size_residuals, 2,
+            pred_size_class[..., None, None].expand(B, K, 1, 3))[:, :, 0, :]
+        box_size = class2size(pred_size_class, pred_size_residual, mean_sizes)
+
+        center_cam = flip_axis_to_camera(end_points["center"])
+        corners_cam = get_3d_box_batch(box_size, -heading_angles, center_cam)
+
+        obj_prob = torch.softmax(end_points["objectness_scores"], dim=-1)[..., 1]
+        sem_cls_probs = torch.softmax(end_points["sem_cls_scores"], dim=-1)
+        pred_sem_cls = end_points["sem_cls_scores"].argmax(dim=-1)
+
+        valid = None
+        if remove_empty_box and point_clouds is not None:
+            # drop proposals whose box holds fewer than 5 scene points
+            c, s = torch.cos(heading_angles), torch.sin(heading_angles)
+            counts = torch.stack([
+                self._points_in_boxes(point_clouds[b, :, :3],
+                                      end_points["center"][b], c[b], s[b],
+                                      box_size[b])
+                for b in range(B)
+            ])
+            valid = counts >= 5
+
+        pred_mask = nms_3d(corners_to_aabb(corners_cam), obj_prob,
+                           pred_sem_cls if use_cls_nms else None, nms_iou,
+                           valid=valid)
+        return {
+            "pred_corners_3d_upright_camera": corners_cam,
+            "sem_cls_probs": sem_cls_probs,
+            "obj_prob": obj_prob,
+            "pred_sem_cls": pred_sem_cls,
+            "pred_mask": pred_mask,
+            "heading_angles": heading_angles,
+            "box_size": box_size,
+        }
+
+    def generate_completion(self, end_points, proposal_features, parsed,
+                            point_clouds, dump_threshold=0.5, marks=None):
+        """Demo mode (no GT fields): the top-`generate_limit` NMS survivors
+        above `dump_threshold`, skip-propagated into conditioning codes.
+
+        Returns proposal_ids (B, G, 3) [proposal, gt (0), class], valid
+        (B, G), features (B*G, c_dim), cls_codes (B*G, num_class), centers,
+        heading_angles, mask_loss (0)."""
+        B, K = parsed["obj_prob"].shape
+        G = min(self.generate_limit, K)
+        eligible = parsed["pred_mask"] & (parsed["obj_prob"] > dump_threshold)
+        score = torch.where(eligible, parsed["obj_prob"], -1.0)
+        # lax.top_k keeps the lower index first among ties: a stable sort
+        top_scores, top_ids = torch.sort(score, dim=1, descending=True,
+                                         stable=True)
+        top_scores, top_ids = top_scores[:, :G], top_ids[:, :G]
+        valid = top_scores > 0.0
+        gt_ids = torch.zeros_like(top_ids)
+        cls_ids = torch.gather(parsed["pred_sem_cls"], 1, top_ids)
+        proposal_ids = torch.stack([top_ids, gt_ids, cls_ids], dim=-1).to(
+            torch.int32)
+
+        sel_features = gather_points(proposal_features, top_ids)
+        pred_centers = gather_points(end_points["center"], top_ids)
+        heading_angles = torch.gather(self._heading_angles(end_points), 1,
+                                      top_ids)
+        if self.skip_propagate:
+            object_input_features = self.skip_propagation.generate(
+                pred_centers, heading_angles, sel_features, point_clouds)
+        else:
+            object_input_features = sel_features
+        sel_sem_scores = gather_points(end_points["sem_cls_scores"], top_ids)
+        cls_codes = (sel_sem_scores >= sel_sem_scores.amax(
+            dim=-1, keepdim=True)).float()
+        _mark(marks, "skip_propagation")
+        return {
+            "proposal_ids": proposal_ids,
+            "valid": valid,
+            "features": object_input_features.reshape(B * G, -1),
+            "cls_codes": cls_codes.reshape(B * G, -1),
+            "centers": pred_centers,
+            "heading_angles": heading_angles,
+            "mask_loss": torch.zeros((), device=score.device),
+        }
+
+    @torch.no_grad()
+    def generate(self, data: dict, nms_iou=0.25, use_cls_nms=True,
+                 dump_threshold=0.5, remove_empty_box=False,
+                 decode_grid_res=None, grid_padding=0.1, marks=None):
+        """Test-time forward: detection + NMS, completion conditioning and,
+        with `decode_grid_res`, every selected proposal's dense occupancy
+        logit grid (`out["grids"]`, (B*G, nx, nx, nx)). `marks`: optional
+        list that receives a recorded CUDA event after each stage."""
+        pc = data["point_clouds"]
+        _mark(marks, "start")
+        end_points, proposal_features, parsed = self.generate_detections(
+            pc, nms_iou=nms_iou, use_cls_nms=use_cls_nms,
+            remove_empty_box=remove_empty_box, marks=marks,
+        )
+        out = {"end_points": end_points, "parsed": parsed}
+        if self.phase != "completion":
+            return out
+        gen = self.generate_completion(
+            end_points, proposal_features, parsed, pc,
+            dump_threshold=dump_threshold, marks=marks,
+        )
+        out["gen"] = gen
+        if decode_grid_res:
+            nx = int(decode_grid_res)
+            pts = (1.0 + grid_padding) * make_3d_grid(
+                (-0.5,) * 3, (0.5,) * 3, (nx,) * 3, device=pc.device)
+            Nb = gen["features"].shape[0]
+            logits = self.decode_occupancy(
+                gen["features"], gen["cls_codes"],
+                pts[None].expand(Nb, -1, -1))
+            out["grids"] = logits.reshape(Nb, nx, nx, nx)
+            _mark(marks, "grid_decode")
+        return out
+
+    @torch.no_grad()
+    def decode_occupancy(self, features, cls_codes, points):
+        """features (Nb, c_dim), cls_codes (Nb, num_class), points
+        (Nb, T, 3) -> logits (Nb, T), prior-mean z, through the fused
+        CBN decoder."""
+        c = self.completion._cond(features, cls_codes)
+        z = torch.zeros((c.shape[0], self.completion.z_dim),
+                        device=c.device)
+        return self.completion.decode_fused(points, z, c)

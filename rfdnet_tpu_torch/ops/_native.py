@@ -1,0 +1,114 @@
+"""Build and load the hand-written CUDA kernels of `rfdnet_tpu_torch/csrc`.
+
+Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into its own
+shared library with a plain C interface, loaded with `ctypes`. The build
+happens at first use, into `csrc/build/` (listed in `.gitignore`), under a
+name that carries a hash of the source and flags, so an edited source is
+never served by a stale library. `build()` starts one `nvcc` per source
+at once, so a cold start costs the slowest build, not their sum.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+KERNELS = ("fps", "cbn_decoder")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names=KERNELS) -> dict[str, str]:
+    """Compile every library of `names` that is not built yet, all at once.
+    Returns the compiler's messages (ptxas register and spill counts) per
+    name built; raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError(
+            "nvcc failed for " + ", ".join(failed) + ":\n"
+            + "\n".join(logs[n] for n in failed)
+        )
+    return logs
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    path = lib_path(name)
+    if not path.exists():
+        build((name,))
+    return ctypes.CDLL(str(path))
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_launch(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
+                 shape: tuple, device: torch.device) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` (None
+    matches any size) on `device`."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != len(shape) or any(
+        s is not None and s != d for s, d in zip(shape, t.shape)
+    ):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

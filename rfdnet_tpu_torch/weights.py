@@ -1,0 +1,91 @@
+"""Weights for the port: the bridge from `rfdnet_tpu`'s flax variables, and
+a seeded init of the port's own.
+
+Module names in the port follow the flax tree, so the bridge is a rename:
+- Dense `kernel` (in, out) -> `weight` (out, in), `bias` -> `bias`;
+- BatchNorm `scale`/`bias` -> `weight`/`bias`, and its `batch_stats`
+  `mean`/`var` -> `running_mean`/`running_var`;
+- CBatchNorm `gamma_kernel`/`gamma_bias` -> `gamma.weight`/`gamma.bias`,
+  `beta_kernel`/`beta_bias` -> `beta.weight`/`beta.bias`, and the stats of
+  its `_AffinelessBatchNorm` (`bn`) -> `bn.running_mean`/`bn.running_var`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from .models.common import BatchNorm, Dense
+from .models.layers import CBatchNorm, _AffinelessBatchNorm
+
+_PARAM_LEAVES = {
+    "kernel": ("weight", True),
+    "bias": ("bias", False),
+    "scale": ("weight", False),
+    "gamma_kernel": ("gamma.weight", True),
+    "gamma_bias": ("gamma.bias", False),
+    "beta_kernel": ("beta.weight", True),
+    "beta_bias": ("beta.bias", False),
+}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _walk(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _walk(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def from_flax(variables) -> dict[str, torch.Tensor]:
+    """Map flax variables (a nested dict of arrays with `params` and
+    `batch_stats`) to the port's `state_dict` keys."""
+    out = {}
+    for path, leaf in _walk(variables["params"]):
+        name, transpose = _PARAM_LEAVES[path[-1]]
+        t = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        out[".".join(path[:-1] + (name,))] = t.T.contiguous() if transpose else t
+    for path, leaf in _walk(variables.get("batch_stats", {})):
+        t = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        out[".".join(path[:-1] + (_STAT_LEAVES[path[-1]],))] = t
+    return out
+
+
+@torch.no_grad()
+def init_seeded(model: nn.Module, seed: int, noise: float = 0.02) -> nn.Module:
+    """Fill `model` in place from `seed`, device-independently: the JAX
+    package's init (torch-default U(+-1/sqrt(fan_in)) Dense weights and
+    biases, zero kernels where it zero-initialises, identity batch norms and
+    CBN affines), then N(0, noise^2) added to every parameter and buffer.
+    The perturbation matters: at init every fc_1 is zero and every CBN is
+    the identity, which would leave the decoder's matmuls untested."""
+    g = torch.Generator().manual_seed(seed)
+
+    def fill(t: torch.Tensor, values: torch.Tensor) -> None:
+        t.copy_(values.to(t.device))
+
+    for module in model.modules():
+        if isinstance(module, Dense):
+            bound = 1.0 / module.in_features ** 0.5
+            w = torch.empty(module.weight.shape).uniform_(-bound, bound,
+                                                          generator=g)
+            fill(module.weight, torch.zeros_like(w) if module.zero_init else w)
+            if module.bias is not None:
+                fill(module.bias, torch.empty(module.bias.shape).uniform_(
+                    -bound, bound, generator=g))
+        elif isinstance(module, (BatchNorm, _AffinelessBatchNorm)):
+            module.running_mean.zero_()
+            module.running_var.fill_(1.0)
+            if isinstance(module, BatchNorm):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+    # CBN affines start as the identity: gamma = 0 * c + 1, beta = 0 * c + 0
+    for module in model.modules():
+        if isinstance(module, CBatchNorm):
+            module.gamma.bias.fill_(1.0)
+            module.beta.bias.zero_()
+    for _, t in sorted(model.state_dict(keep_vars=True).items()):
+        t.add_(torch.randn(t.shape, generator=g).to(t.device) * noise)
+    return model
