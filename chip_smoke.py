@@ -6,9 +6,23 @@ It needs one CUDA card and exits nonzero, printing no result, without one.
 Phases, each printing one JSON line; any failure ends the run nonzero:
 
 1. device: the card's name and power limit (`nvidia-smi`), then both
-   CUDA kernels built from `rfdnet_tpu_torch/csrc/` at once (`nvcc`).
-2. fps: the FPS kernel against its plain torch version at the five shapes
-   of the main path, on the 80000-point demo scene (indices equal).
+   CUDA kernels built from `rfdnet_tpu_torch/csrc/` at once (`nvcc`), with
+   each instantiation's registers and spills as `ptxas` reports them
+   (every route of `fps_route` must find its one instantiation there, with
+   no spill).
+2. fps: the FPS kernels against the plain torch version (indices equal)
+   at the five shapes of the main path, on the 80000-point demo scene
+   (the first five times over), and at the shapes that can go wrong apart
+   from them: two scenes in a batch, a size just below and just above
+   every switch of `fps_route` (the last one takes the streaming kernel),
+   near-origin points, more samples than points. Each main-path row names
+   its route and gives the time per step, `prev_ms` (the streaming kernel,
+   which served these shapes before the resident one, at the same shape;
+   its indices are held to the plain version too), `bound_ms`
+   (operations) and `chain_bound_ms`: its steps times the time of one
+   step of the stub kernel (the route's reductions, barriers and
+   exchange, no point work), which is the least a chain of dependent
+   steps can take on that route.
 3. cbn_decode: the fused CBN decoder kernel against its plain version at
    64 proposals x 32^3 points, f32 and bf16 operands.
 4. slice: the test config's generation path at full width through
@@ -31,8 +45,11 @@ outside the tensor cores, 989 TFLOP/s bf16), NVIDIA's H100 SXM figures.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -102,15 +119,37 @@ def slice_setup(dev):
 def phase_device():
     smi = nvidia_smi()
     print(smi, flush=True)
-    from rfdnet_tpu_torch.ops import _native
+    from rfdnet_tpu_torch.ops import _native, fps
 
+    # always from the sources: the compiler's report comes only from a build
+    shutil.rmtree(_native.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     logs = _native.build()
-    ptxas = {name: [l.strip() for l in log.splitlines()
-                    if "registers" in l or "spill" in l]
-             for name, log in logs.items()}
-    emit(phase="device", nvidia_smi=smi,
-         build_s=round(time.perf_counter() - t0, 3), ptxas=ptxas)
+    build_s = round(time.perf_counter() - t0, 3)
+    ptxas = {name: _native.ptxas_summary(log) for name, log in logs.items()}
+    emit(phase="device", nvidia_smi=smi, build_s=build_s, ptxas=ptxas)
+    resident = fps_resident_ptxas(ptxas["fps"])
+    for route in fps.RESIDENT_ROUTES:
+        rows = [r for r in resident if not r["stub"]
+                and (r["clustered"], r["threads"], r["ppt"])
+                == (route.cluster > 1, route.threads, route.ppt)]
+        check(len(rows) == 1, f"{route}: {len(rows)} ptxas rows, expected 1")
+        check(rows[0]["spill"] == [0, 0], f"{route} spills: {rows[0]}")
+
+
+def fps_resident_ptxas(rows):
+    """The `ptxas` rows of the resident FPS kernel's instantiations, with
+    the template arguments read from the mangled name."""
+    out = []
+    for row in rows:
+        m = re.search(r"fps_residentILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
+                      row["kernel"])
+        if m:
+            t, p, c, stub = (int(g) for g in m.groups())
+            out.append(dict(threads=t, ppt=p, clustered=bool(c),
+                            stub=bool(stub), registers=row["registers"],
+                            spill=row["spill"]))
+    return out
 
 
 def fps_inputs(xyz):
@@ -129,28 +168,79 @@ def fps_inputs(xyz):
     return out
 
 
-def phase_fps(xyz, reps: int = 3):
-    from rfdnet_tpu_torch.ops.fps import fps_plain, furthest_point_sample
+def fps_edge_inputs(xyz, dev):
+    """FPS inputs beside the main path's, each (name, points, npoint):
+    the shapes and data where a resident kernel can go wrong."""
+    from rfdnet_tpu_torch.ops import fps
+
+    g = torch.Generator().manual_seed(SEED + 2)
+
+    def uniform(b, n):
+        return (torch.rand(b, n, 3, generator=g) * 4 - 2).to(dev)
+
+    n = xyz.shape[1]
+    two = torch.cat([xyz, xyz.flip(1) * 0.5 + 0.25]).contiguous()
+    out = [(f"batch2_{n}", two, 256)]
+    for route in fps.RESIDENT_ROUTES:  # the last cap + 1 goes to streaming
+        for size in (route.capacity, route.capacity + 1):
+            out.append((f"switch_{size}", uniform(1, size), 48))
+    for size in (3000, 20000):  # one CTA, and a cluster
+        block = uniform(2, size)
+        block[:, 1:size // 4] *= 1e-3   # never candidates, index 1 too
+        out.append((f"near_origin_block_{size}", block, 300))
+        out.append((f"near_origin_all_{size}", uniform(1, size) * 1e-3, 40))
+    out.append(("npoint_over_n", uniform(2, 100), 160))
+    return out
+
+
+def phase_fps(xyz, reps: int = 3, sa1_repeats: int = 5):
+    from rfdnet_tpu_torch.ops.fps import (STREAMING_ROUTE, FpsRoute,
+                                          fps_plain, fps_route,
+                                          furthest_point_sample, launch_route)
 
     rows = []
     for name, pts, npoint in fps_inputs(xyz):
-        k = furthest_point_sample(pts, npoint)
+        N, steps = pts.shape[1], npoint - 1
+        route = fps_route(N)
         p = fps_plain(pts, npoint)
+        # a lost barrier or a slot reused a step early shows only sometimes
+        ks = [furthest_point_sample(pts, npoint)
+              for _ in range(sa1_repeats if name == "sa1" else 1)]
+        # the one-CTA kernel that served these shapes before the resident one
+        ks.append(launch_route(pts, npoint, STREAMING_ROUTE))
         torch.cuda.synchronize()
-        equal = bool(torch.equal(k, p))
-        N = pts.shape[1]
+        equal = all(bool(torch.equal(k, p)) for k in ks)
         # per step and point: 3 sub, 3 mul, 2 add, 1 min, 1 compare
-        b, by = bound_ms(N * 12 + npoint * 4, 10.0 * N * (npoint - 1),
-                         F32_FLOPS)
+        b, by = bound_ms(N * 12 + npoint * 4, 10.0 * N * steps, F32_FLOPS)
+        ms = cuda_ms(lambda: furthest_point_sample(pts, npoint), reps)
+        stub = FpsRoute("resident", route.cluster, route.threads, 1)
+        stub_ms = cuda_ms(lambda: launch_route(pts, npoint, stub, stub=True),
+                          reps)
         rows.append(dict(
-            name=name, n=N, npoint=npoint, equal=equal,
-            max_abs_err=int((k.long() - p.long()).abs().max()),
-            ms=cuda_ms(lambda: furthest_point_sample(pts, npoint), reps),
+            name=name, n=N, npoint=npoint, equal=equal, compared=len(ks),
+            max_abs_err=max(int((k.long() - p.long()).abs().max())
+                            for k in ks),
+            route=dataclasses.asdict(route),
+            ms=ms, us_per_step=ms * 1e3 / steps,
+            prev_ms=cuda_ms(lambda: launch_route(pts, npoint,
+                                                 STREAMING_ROUTE), reps),
             plain_ms=cuda_ms(lambda: fps_plain(pts, npoint), 1, 0),
-            bound_ms=b, bound_by=by,
+            bound_ms=b, bound_by=by, chain_bound_ms=stub_ms,
+            stub_us_per_step=stub_ms * 1e3 / steps,
         ))
         check(equal, f"fps {name}: kernel indices differ from the plain version")
-    emit(phase="fps", shapes=rows)
+    edges = []
+    for name, pts, npoint in fps_edge_inputs(xyz, xyz.device):
+        route = fps_route(pts.shape[1])
+        k = furthest_point_sample(pts, npoint)
+        equal = bool(torch.equal(k, fps_plain(pts, npoint)))
+        edges.append(dict(name=name, b=pts.shape[0], n=pts.shape[1],
+                          npoint=npoint, equal=equal,
+                          route=dataclasses.asdict(route)))
+        check(equal, f"fps {name}: kernel indices differ from the plain version")
+    check(any(e["route"]["kind"] == "streaming" for e in edges),
+          "fps: no edge shape reached the streaming kernel")
+    emit(phase="fps", shapes=rows, edges=edges)
     return rows
 
 
@@ -340,7 +430,9 @@ def kernel_summary(fps_rows, cbn_rows, launches):
              ms=sum(r["ms"] for r in fps_rows),
              plain_ms=sum(r["plain_ms"] for r in fps_rows),
              bound_ms=sum(r["bound_ms"] for r in fps_rows),
-             bound_by=fps_rows[0]["bound_by"], library_ms=None),
+             bound_by=fps_rows[0]["bound_by"], library_ms=None,
+             chain_bound_ms=sum(r["chain_bound_ms"] for r in fps_rows),
+             prev_ms=sum(r["prev_ms"] for r in fps_rows)),
         dict(name="cbn_decode", route="cuda",
              source="rfdnet_tpu_torch/csrc/cbn_decoder.cu",
              replaces="rfdnet_tpu/ops/cbn_decoder.py:160",

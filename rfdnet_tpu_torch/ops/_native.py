@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -74,6 +75,22 @@ def build(names=KERNELS) -> dict[str, str]:
             + "\n".join(logs[n] for n in failed)
         )
     return logs
+
+
+def ptxas_summary(log: str) -> list[dict]:
+    """One entry per kernel of an `nvcc -Xptxas -v` log: its (mangled)
+    name, registers a thread, and bytes of spill stores and loads."""
+    rows, name, spill = [], None, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name, spill = line.rsplit(" ", 1)[1], None
+        elif name and "spill stores" in line:
+            spill = [int(v) for v in re.findall(r"(\d+) bytes spill", line)]
+        elif name and "Used" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            rows.append(dict(kernel=name, registers=regs, spill=spill))
+            name = None
+    return rows
 
 
 @functools.cache

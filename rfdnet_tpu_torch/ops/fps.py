@@ -1,7 +1,7 @@
 """Furthest point sampling (FPS).
 
-Counterpart of `rfdnet_tpu/ops/fps.py`. On a CUDA tensor it launches the
-hand-written kernel `csrc/fps.cu` (the port of the Pallas kernel
+Counterpart of `rfdnet_tpu/ops/fps.py`. On a CUDA tensor it launches a
+hand-written kernel of `csrc/fps.cu` (the port of the Pallas kernel
 `_fps_kernel`/`_fps_pallas`); on a CPU tensor it runs `fps_plain`, the
 torch version of `_fps_xla`'s loop. Both share the JAX package's
 semantics exactly:
@@ -9,15 +9,88 @@ semantics exactly:
 - points with ||p||^2 <= 1e-3 are never candidates;
 - the running min-distance starts at 1e10;
 - each step takes the argmax of the min-distance, ties to the LOWEST index.
+
+`fps_route(n)` says which kernel a cloud of n points takes and how it is
+launched: the resident kernel (the cloud in registers across one
+thread-block cluster per scene) up to `RESIDENT_CAPACITY` points, the
+streaming kernel (one CTA, the cloud in device memory) above it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from . import _native
+
+SHARED_LIMIT = 232448      # bytes of shared memory one CTA can use (227 KB)
+REGISTER_FILE = 65536      # 32-bit registers of one SM
+REGISTER_HEADROOM = 24     # registers a thread needs beside its points
+MAX_CLUSTER = 16
+# warp slots, CTA slots and mbarriers, each twice (step parity)
+_STATIC_SHARED = 2 * (2 * 32 * 4 + MAX_CLUSTER * 32 + 8)
+
+
+@dataclass(frozen=True)
+class FpsRoute:
+    """How one FPS call is launched. `kind` is "resident" (each scene one
+    cluster of `cluster` CTAs of `threads` threads, `ppt` points a thread
+    in registers) or "streaming" (one CTA a scene, the cloud in device
+    memory; `ppt` is 0 there)."""
+
+    kind: str
+    cluster: int
+    threads: int
+    ppt: int
+
+    @property
+    def capacity(self) -> int:
+        """The most points a scene may have on this route."""
+        if self.kind == "streaming":
+            return 2 ** 31 // 3
+        return self.cluster * self.threads * self.ppt
+
+    @property
+    def shared_bytes(self) -> int:
+        """Shared memory of one CTA: the copy of its points' coordinates
+        (the winner's are looked up there) and the reduction slots."""
+        return 12 * self.threads * self.ppt + _STATIC_SHARED
+
+    @property
+    def point_registers(self) -> int:
+        """Registers a thread spends on its points (x, y, z, min dist)."""
+        return 4 * self.ppt
+
+    @property
+    def register_limit(self) -> int:
+        """Registers a thread may have at this block size."""
+        return min(255, REGISTER_FILE // self.threads)
+
+
+# Resident routes in order of capacity; a cloud takes the first that holds
+# it. Chosen from `tools/sweep_fps_routes.py` on an NVIDIA H100 80GB HBM3
+# at 700 W. Up to 4096 points a step is latency and one CTA of 8 warps is
+# fastest: the exchange between the CTAs of a cluster costs more than the
+# shorter per-thread scan saves. Above, the scan is what a step costs and
+# a cluster of 8 or 16 CTAs divides it; 8 to 16 warps a CTA beat 32 (the
+# block barrier and the warp-slot reduction grow with the warps).
+RESIDENT_ROUTES = tuple(FpsRoute("resident", c, t, p) for c, t, p in (
+    (1, 256, 2), (1, 256, 4), (1, 256, 8), (1, 256, 16),
+    (8, 256, 4), (16, 256, 4), (16, 256, 8), (16, 256, 16), (16, 512, 10),
+    (16, 512, 16), (16, 512, 20), (16, 512, 24),
+))
+STREAMING_ROUTE = FpsRoute("streaming", 1, 1024, 0)
+RESIDENT_CAPACITY = RESIDENT_ROUTES[-1].capacity
+
+
+def fps_route(n: int) -> FpsRoute:
+    """The route a cloud of n points takes."""
+    for route in RESIDENT_ROUTES:
+        if n <= route.capacity:
+            return route
+    return STREAMING_ROUTE
 
 
 def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -43,21 +116,46 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
-def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+def launch_route(xyz: torch.Tensor, npoint: int, route: FpsRoute,
+                 stub: bool = False, lib=None) -> torch.Tensor:
+    """Launch the kernel of `route` on a CUDA tensor, whatever `fps_route`
+    would choose: for `_fps_cuda`, and for measuring one route against
+    another. With `stub` (resident routes; `ppt` must be 1) the steps do
+    their reductions, barriers and exchange and no point work: the time
+    over the steps is the latency of one dependent step on that (cluster,
+    threads), and the indices returned mean nothing. `lib` is another
+    build of `csrc/fps.cu` to launch from (one with more launch shapes)."""
     B, N = xyz.shape[0], xyz.shape[1]
     _native.check_tensor(xyz, "xyz", torch.float32, (B, N, 3), xyz.device)
     if npoint < 1 or N < 1:
         raise ValueError(f"fps: npoint={npoint}, N={N}")
-    lib = _native.load("fps")
-    fn = lib.rfd_fps_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if N > route.capacity and not stub:
+        raise ValueError(f"fps: {N} points exceed {route}")
+    lib = lib or _native.load("fps")
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    mind = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
     with torch.cuda.device(xyz.device):
-        err = fn(_native.ptr(xyz), _native.ptr(mind), _native.ptr(out),
-                 B, N, npoint, _native.stream(xyz.device))
-    _native.check_launch(err, "fps")
+        if route.kind == "resident":
+            fn = lib.rfd_fps_resident_launch
+            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            err = fn(_native.ptr(xyz), _native.ptr(out), B, N, npoint,
+                     route.cluster, route.threads, route.ppt, int(stub),
+                     _native.stream(xyz.device))
+        else:
+            fn = lib.rfd_fps_streaming_launch
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            mind = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
+            err = fn(_native.ptr(xyz), _native.ptr(mind), _native.ptr(out),
+                     B, N, npoint, _native.stream(xyz.device))
+    _native.check_launch(err, f"fps {route}")
+    return out
+
+
+def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    out = launch_route(xyz, npoint, fps_route(xyz.shape[1]))
     furthest_point_sample.launches += 1
     return out
 
@@ -65,8 +163,8 @@ def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """xyz (B, N, 3) float32 -> (B, npoint) int32 indices into N.
 
-    A CUDA tensor goes to the kernel (contiguous float32 required), a CPU
-    tensor to the plain version."""
+    A CUDA tensor goes to the kernel that `fps_route` names (contiguous
+    float32 required), a CPU tensor to the plain version."""
     if xyz.device.type == "cpu":
         return fps_plain(xyz, npoint)
     return _fps_cuda(xyz, npoint)
