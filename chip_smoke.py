@@ -6,13 +6,14 @@ It needs one CUDA card and exits nonzero, printing no result, without one.
 Phases, each printing one JSON line; any failure ends the run nonzero:
 
 1. device: the card's name and power limit (`nvidia-smi`), then both
-   CUDA kernels built from `rfdnet_tpu_torch/csrc/` at once (`nvcc`), with
-   each instantiation's registers and spills as `ptxas` reports them
-   (every route of `fps_route` must find its one instantiation there, with
-   no spill).
+   CUDA kernels (`nvcc`) and the host marching cubes (`g++`) built from
+   `rfdnet_tpu_torch/csrc/` at once, with each kernel instantiation's
+   registers and spills as `ptxas` reports them (every route of
+   `fps_route` must find its one instantiation there, with no spill).
 2. fps: the FPS kernels against the plain torch version (indices equal)
    at the five shapes of the main path, on the 80000-point demo scene
-   (the first five times over), and at the shapes that can go wrong apart
+   (the first five times over), at the detection path's `vote_fps` shape
+   (256 of the scene's 1024 votes), and at the shapes that can go wrong apart
    from them: two scenes in a batch, a size just below and just above
    every switch of `fps_route` (the last one takes the streaming kernel),
    near-origin points, more samples than points. Each main-path row names
@@ -25,15 +26,33 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    steps can take on that route.
 3. cbn_decode: the fused CBN decoder kernel against its plain version at
    64 proposals x 32^3 points, f32 and bf16 operands.
-4. slice: the test config's generation path at full width through
-   `demo.generate` (80000 points, 256 proposals, 64 slots, 32^3 grids,
-   seeded weights), ten scenes after a warm-up; scene latency and
-   per-stage times (CUDA events) as mean, min and max; the launch count of
-   each kernel in the first timed scene (counts set to 0 just before it).
-5. reference: the same path on a 4096-point subsample, on the card and on
+4. slice: the test config's generation path at full width (80000
+   points, 256 proposals, 64 slots, 32^3 grids, seeded weights), ten
+   scenes after a warm-up, twice: to the logit grids on the card
+   (`demo.generate_grids`: `wall_ms`) and on to the meshes on the host
+   (`demo.generate`: `wall_mesh_ms`). Scene latency and per-stage times
+   (CUDA events; host clock for the copy to the host and the extraction)
+   as mean, min and max; triangles per scene and the extractor's thread
+   count; the launch count of each kernel in each run's first timed scene
+   (counts set to 0 just before it).
+5. mesh: on that scene's meshes, every edge of every mesh shared by
+   exactly two faces, every vertex in the padded unit box, and identical
+   arrays from the batch route, the per-proposal route and a second
+   extraction.
+6. reference: the same path on a 4096-point subsample, on the card and on
    the CPU (plain versions), from the same seeded weights: the sampling
    indices, NMS keep mask and selected proposals equal; detection floats,
-   skip-propagation features and grids within the stated tolerances.
+   skip-propagation features and grids within the stated tolerances;
+   meshes equal (faces equal, vertices within `mesh_comparable`'s
+   tolerance) for the proposals whose two grids lie on the same side of
+   the iso level everywhere, the others counted.
+7. demo: `rfdnet_tpu_torch.cli.main --mode demo` on the demo scene with a
+   copy of `configs/iscnet_test.yaml` (its seed set to this script's, at
+   which the seeded weights leave valid slots), in a temporary directory;
+   the files it wrote are read back.
+8. detection: `configs/iscnet_detection.yaml` (`vote_fps`, no completion)
+   at full width, three scenes after a warm-up, with stage times; on 4096
+   points the sampling indices and NMS keep mask equal a CPU run's.
 Then the `kernels` summary line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -52,6 +71,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -59,6 +79,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENE = os.path.join(ROOT, "demo", "outputs", "synthetic_room",
                      "synthetic_room.off")
+TEST_YAML = os.path.join(ROOT, "configs", "iscnet_test.yaml")
+DETECTION_YAML = os.path.join(ROOT, "configs", "iscnet_detection.yaml")
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -93,6 +115,28 @@ def bound_ms(nbytes: float, flops: float, peak: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mesh_comparable(a, b, iso: float = 0.0, margin: float = 1e-3):
+    """Whether marching cubes over two versions of one proposal's logit
+    grid (numpy, from two devices) must give the same faces: the values
+    lie on the same side of `iso` everywhere, and no lattice edge crosses
+    it with a value difference under `margin`. Returns (comparable, the
+    vertex tolerance in cells): a crossing sits at -va / (vb - va) along
+    its edge, which moves by at most the grids' largest difference over
+    the smallest crossing difference; the tolerance is twice that."""
+    if ((a > iso) != (b > iso)).any():
+        return False, None
+    gap = float("inf")
+    for axis in range(a.ndim):
+        lo = a.take(range(a.shape[axis] - 1), axis)
+        hi = a.take(range(1, a.shape[axis]), axis)
+        cross = (lo > iso) != (hi > iso)
+        if cross.any():
+            gap = min(gap, float(abs(lo - hi)[cross].min()))
+    if gap < margin:
+        return False, None
+    return True, 2.0 * float(abs(a - b).max()) / gap
 
 
 def nvidia_smi() -> str:
@@ -152,9 +196,10 @@ def fps_resident_ptxas(rows):
     return out
 
 
-def fps_inputs(xyz):
-    """The five FPS inputs of the main path: SA1-4 (each sampling the
-    previous layer's samples) and seed_fps over the 1024 seeds."""
+def fps_inputs(xyz, votes):
+    """The FPS inputs of the paths: SA1-4 (each sampling the previous
+    layer's samples), seed_fps over the 1024 seeds (main path and demo),
+    and vote_fps over the scene's 1024 votes (detection path)."""
     from rfdnet_tpu_torch.ops import furthest_point_sample, gather_points
 
     shapes = [(2048, "sa1"), (1024, "sa2"), (512, "sa3"), (256, "sa4")]
@@ -165,6 +210,7 @@ def fps_inputs(xyz):
         if name == "sa2":
             seeds = cur
     out.append(("seed_fps", seeds, 256))
+    out.append(("vote_fps", votes, 256))
     return out
 
 
@@ -193,13 +239,13 @@ def fps_edge_inputs(xyz, dev):
     return out
 
 
-def phase_fps(xyz, reps: int = 3, sa1_repeats: int = 5):
+def phase_fps(xyz, votes, reps: int = 3, sa1_repeats: int = 5):
     from rfdnet_tpu_torch.ops.fps import (STREAMING_ROUTE, FpsRoute,
                                           fps_plain, fps_route,
                                           furthest_point_sample, launch_route)
 
     rows = []
-    for name, pts, npoint in fps_inputs(xyz):
+    for name, pts, npoint in fps_inputs(xyz, votes):
         N, steps = pts.shape[1], npoint - 1
         route = fps_route(N)
         p = fps_plain(pts, npoint)
@@ -321,52 +367,189 @@ def phase_cbn(model, dev, nb: int = 64, res: int = 32, reps: int = 3):
     return rows
 
 
-def phase_slice(model, data, cfg, scenes: int = 10):
-    """One warm-up scene, then `scenes` timed scenes one at a time (as the
-    test protocol runs them); the launch counts are those of the first
-    timed scene, and its outputs are the ones checked."""
-    from rfdnet_tpu_torch import demo
+def reset_launches() -> None:
     from rfdnet_tpu_torch.ops import furthest_point_sample, fused_cbn_decode
 
-    pc = data["point_clouds"]
-    demo.generate(cfg, model, pc)  # warm-up
+    furthest_point_sample.launches = 0
+    fused_cbn_decode.launches = 0
+
+
+def read_launches() -> dict:
+    from rfdnet_tpu_torch.ops import furthest_point_sample, fused_cbn_decode
+
+    return {"fps": furthest_point_sample.launches,
+            "cbn_decode": fused_cbn_decode.launches}
+
+
+def spread(values) -> dict:
+    return {"mean": sum(values) / len(values), "min": min(values),
+            "max": max(values)}
+
+
+def timed_scenes(run_scene, scenes: int) -> dict:
+    """One warm-up call of run_scene(marks), then `scenes` timed calls one
+    at a time (as the test protocol runs them), each ending in a
+    synchronise. Returns the window and single-scene times on the host
+    clock, the stage times between the CUDA events each call left in
+    `marks`, and the first timed call's launch counts and result."""
+    run_scene([])  # warm-up
     torch.cuda.synchronize()
     walls, stage_runs = [], []
     t_window = time.perf_counter()
     for i in range(scenes):
         if i == 0:
-            furthest_point_sample.launches = 0
-            fused_cbn_decode.launches = 0
+            reset_launches()
         marks = []
         t0 = time.perf_counter()
-        out = demo.generate(cfg, model, pc, marks=marks)
+        out = run_scene(marks)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
-            launches = {"fps": furthest_point_sample.launches,
-                        "cbn_decode": fused_cbn_decode.launches}
-            _, parsed, gen, grids = out
+            launches, first = read_launches(), out
         stage_runs.append({name: marks[j - 1][1].elapsed_time(ev)
                            for j, (name, ev) in enumerate(marks) if j})
     window = (time.perf_counter() - t_window) * 1e3
-    stages = {name: {"mean": sum(r[name] for r in stage_runs) / scenes,
-                     "min": min(r[name] for r in stage_runs),
-                     "max": max(r[name] for r in stage_runs)}
-              for name in stage_runs[0]}
+    return dict(
+        wall_ms=window / scenes, wall_ms_min=min(walls),
+        wall_ms_max=max(walls),
+        stage_ms={name: spread([r[name] for r in stage_runs])
+                  for name in stage_runs[0]},
+        launches=launches, first=first)
+
+
+def phase_slice(model, data, cfg, scenes: int = 10):
+    """The main path twice: to the grids on the card (`generate_grids`),
+    and on to the meshes on the host (`generate`, with one generator, so
+    one pinned buffer, over the scenes). The outputs checked are those of
+    each run's first timed scene. Returns the launches of both runs and
+    the grids, valid flags and meshes for the `mesh` phase."""
+    from rfdnet_tpu_torch import demo
+    from rfdnet_tpu_torch.meshing.native import mesh_threads
+
+    pc = data["point_clouds"]
+    to_grids = timed_scenes(
+        lambda marks: demo.generate_grids(cfg, model, pc, marks=marks), scenes)
+    _, parsed, gen, grids = to_grids.pop("first")
+
+    generator = demo.make_generator(cfg, model)
+    host_runs = []
+
+    def to_meshes_scene(marks):
+        host_runs.append({})
+        return demo.generate(cfg, model, data, generator=generator,
+                             marks=marks, host_ms=host_runs[-1])
+
+    to_meshes = timed_scenes(to_meshes_scene, scenes)
+    parsed_m, gen_m, meshes = to_meshes.pop("first")
+    host_runs = host_runs[1:]  # without the warm-up
+    stage_mesh = dict(to_meshes["stage_ms"])
+    for name in ("d2h", "mesh"):
+        stage_mesh[name] = spread([r[name] for r in host_runs])
+    triangles = sum(len(m.faces) for m in meshes)
     res = cfg["generation"]["resolution_0"]
     emit(phase="slice", points=int(pc.shape[1]),
          proposals=int(parsed["obj_prob"].shape[1]),
          grids=list(grids.shape), finite=bool(torch.isfinite(grids).all()),
          pred_mask=int(parsed["pred_mask"].sum()),
          valid=int(gen["valid"].sum()), scenes=scenes,
-         wall_ms=window / scenes, wall_ms_min=min(walls),
-         wall_ms_max=max(walls), stage_ms=stages, launches=launches)
+         wall_ms=to_grids["wall_ms"], wall_ms_min=to_grids["wall_ms_min"],
+         wall_ms_max=to_grids["wall_ms_max"], stage_ms=to_grids["stage_ms"],
+         launches=to_grids["launches"],
+         wall_mesh_ms=to_meshes["wall_ms"],
+         wall_mesh_ms_min=to_meshes["wall_ms_min"],
+         wall_mesh_ms_max=to_meshes["wall_ms_max"],
+         stage_mesh_ms=stage_mesh, launches_mesh=to_meshes["launches"],
+         mesh_threads=mesh_threads(len(meshes)), triangles=triangles,
+         vertices=sum(len(m.vertices) for m in meshes),
+         meshes_non_empty=sum(len(m.faces) > 0 for m in meshes))
     check(tuple(grids.shape) == (model.generate_limit, res, res, res),
           f"grids shape {tuple(grids.shape)}")
     check(bool(torch.isfinite(grids).all()), "non-finite grid logits")
-    check(launches == {"fps": 5, "cbn_decode": 1},
-          f"kernel launches on the main path: {launches}")
-    return launches
+    for what, run in (("to the grids", to_grids),
+                      ("to the meshes", to_meshes)):
+        check(run["launches"] == {"fps": 5, "cbn_decode": 1},
+              f"kernel launches on the main path {what}: {run['launches']}")
+    check(bool((gen_m["valid"] == gen["valid"].cpu().numpy()).all())
+          and bool((parsed_m["pred_mask"]
+                    == parsed["pred_mask"].cpu().numpy()).all()),
+          "generate and generate_grids disagree on the selected proposals")
+    check(len(meshes) == model.generate_limit and triangles > 0,
+          f"{len(meshes)} meshes with {triangles} triangles")
+    return ({"main": to_grids["launches"], "mesh": to_meshes["launches"]},
+            grids.cpu().numpy(), gen_m["valid"].reshape(-1), meshes)
+
+
+def meshes_equal(a, b) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        np.array_equal(x.vertices, y.vertices)
+        and np.array_equal(x.faces, y.faces) for x, y in zip(a, b))
+
+
+def phase_mesh(model, cfg, grids, valid, meshes):
+    """Checks of the full-width scene's meshes (see the module docstring).
+    The -1e6 pad closes every surface, so every edge has two faces."""
+    import numpy as np
+
+    from rfdnet_tpu_torch import demo
+    from rfdnet_tpu_torch.meshing.native import (marching_cubes_batch,
+                                                 mesh_threads)
+
+    generator = demo.make_generator(cfg, model)
+    res = grids.shape[1]
+    # the pad's crossing lies within 1e-6 of a cell beyond the outer lattice
+    limit = 0.5 * (1 + generator.padding) + 1e-4
+    open_edges = outside = 0
+    for m in meshes:
+        if len(m.faces) == 0:
+            continue
+        f = m.faces.astype(np.int64)
+        edges = np.sort(np.concatenate(
+            [f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+        _, counts = np.unique(edges[:, 0] * len(m.vertices) + edges[:, 1],
+                              return_counts=True)
+        open_edges += int((counts != 2).sum())
+        outside += int((np.abs(m.vertices) > limit).any(axis=1).sum())
+    again = generator.meshes_from_grids(grids, valid=valid)
+    # both routes, whatever this machine's core count makes the default
+    # (the batch call alone, beside each route, says how much of a route's
+    # time is the extractor and how much the Python around it; each is
+    # timed twice in a row, since the first call after a change of the
+    # thread count finds the allocator cold)
+    saved = os.environ.get("RFDNET_MESH_THREADS")
+    routes, route_ms, native_ms = {}, {}, {}
+    try:
+        for name, threads in (("per_proposal_1", 1), ("batch_4", 4),
+                              ("batch_8", 8)):
+            os.environ["RFDNET_MESH_THREADS"] = str(threads)
+            check(mesh_threads(len(grids)) == threads, "mesh: thread count")
+            route_ms[name], native_ms[name] = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                routes[name] = generator.meshes_from_grids(grids, valid=valid)
+                route_ms[name].append((time.perf_counter() - t0) * 1e3)
+            for _ in range(2):
+                t0 = time.perf_counter()
+                marching_cubes_batch(grids, generator.iso, valid=valid)
+                native_ms[name].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        if saved is None:
+            del os.environ["RFDNET_MESH_THREADS"]
+        else:
+            os.environ["RFDNET_MESH_THREADS"] = saved
+    identical = {name: meshes_equal(got, meshes)
+                 for name, got in routes.items()}
+    emit(phase="mesh", meshes=len(meshes), resolution=res,
+         open_edges=open_edges, vertices_outside=outside,
+         repeat_identical=meshes_equal(again, meshes),
+         routes_identical=identical, route_ms=route_ms,
+         batch_call_ms=native_ms)
+    check(open_edges == 0, f"mesh: {open_edges} edges without two faces")
+    check(outside == 0, f"mesh: {outside} vertices outside the padded box")
+    check(meshes_equal(again, meshes), "mesh: a second extraction differs")
+    check(all(identical.values()),
+          f"mesh: a route's arrays differ from the scene's: {identical}")
 
 
 def phase_reference(model, cfg, num_points: int = 4096):
@@ -376,19 +559,22 @@ def phase_reference(model, cfg, num_points: int = 4096):
     their valid flags. Detection floats use atol 3e-5, rtol 2e-4 (cuBLAS
     and the CPU sum in other orders); the skip-propagation features and
     the grids, ~30 chained layers on, atol 1e-4 * max(scale, 1), rtol
-    1e-3."""
+    1e-3. Meshes: `demo.generate` on the card against the extraction of
+    the CPU's grids, for the proposals that `mesh_comparable` passes:
+    faces equal, vertices within its tolerance."""
     import copy
 
+    import numpy as np
+
     from rfdnet_tpu_torch import demo
-    from rfdnet_tpu_torch.config import eval_config
 
     dev = next(model.parameters()).device
-    pc = demo.load_demo_data(SCENE, num_points=num_points,
-                             device=dev)["point_clouds"]
-    ep, parsed, gen, grids = demo.generate(cfg, model, pc)
+    data = demo.load_demo_data(SCENE, num_points=num_points, device=dev)
+    pc = data["point_clouds"]
+    ep, parsed, gen, grids = demo.generate_grids(cfg, model, pc)
     cpu_model = copy.deepcopy(model).to("cpu")
     pc_c = pc.cpu()
-    ep_c, parsed_c, gen_c, grids_c = demo.generate(cfg, cpu_model, pc_c)
+    ep_c, parsed_c, gen_c, grids_c = demo.generate_grids(cfg, cpu_model, pc_c)
     errs = {}
 
     def equal(name, got, want):
@@ -413,30 +599,190 @@ def phase_reference(model, cfg, num_points: int = 4096):
           1e-4 * max(float(gen_c["features"].abs().max()), 1.0), 1e-3)
     close("grids", grids, grids_c,
           1e-4 * max(float(grids_c.abs().max()), 1.0), 1e-3)
+
+    generator = demo.make_generator(cfg, cpu_model)
+    valid = gen_c["valid"].reshape(-1).numpy()
+    _, gen_m, meshes = demo.generate(cfg, model, data)
+    check(bool((gen_m["valid"].reshape(-1) == valid).all()),
+          "reference: generate selects other proposals than generate_grids")
+    check(meshes_equal(meshes, generator.meshes_from_grids(
+        grids.cpu().numpy(), valid=valid)),
+        "reference: the meshes of generate differ from the extraction of "
+        "generate_grids' grids")
+    meshes_c = generator.meshes_from_grids(grids_c.numpy(), valid=valid)
+    cell = (1 + generator.padding) / (grids.shape[1] - 1)
+    g_np, gc_np = grids.cpu().numpy(), grids_c.numpy()
+    compared = left_out = 0
+    vert_err = vert_tol = 0.0
+    for g in np.flatnonzero(valid):
+        ok, tol_cells = mesh_comparable(g_np[g], gc_np[g], generator.iso)
+        if not ok:
+            left_out += 1
+            continue
+        compared += 1
+        a, b = meshes[g], meshes_c[g]
+        check(np.array_equal(a.faces, b.faces),
+              f"reference: faces of slot {g} differ")
+        err = float(np.abs(a.vertices - b.vertices).max()) if len(
+            a.vertices) else 0.0
+        vert_err, vert_tol = max(vert_err, err), max(vert_tol,
+                                                     tol_cells * cell)
+        check(err <= tol_cells * cell + 1e-12,
+              f"reference: vertices of slot {g} differ by {err}, over "
+              f"{tol_cells * cell}")
     emit(phase="reference", points=num_points, max_abs_err=errs,
          pred_mask=int(parsed_c["pred_mask"].sum()),
-         valid=int(gen_c["valid"].sum()))
+         valid=int(gen_c["valid"].sum()), meshes_compared=compared,
+         meshes_left_out_near_iso=left_out, mesh_vertex_max_err=vert_err,
+         mesh_vertex_tol=vert_tol,
+         triangles=sum(len(m.faces) for m in meshes))
+    check(compared > 0, "reference: no proposal's meshes could be compared")
     return errs
 
 
+def phase_demo():
+    """The CLI in demo mode at full width, in a temporary directory: the
+    files of `demo.save_visualization`, read back."""
+    import numpy as np
+
+    from rfdnet_tpu_torch import cli, config
+    from rfdnet_tpu_torch.meshing.mesh import TriMesh
+
+    with open(TEST_YAML) as f:
+        text = f.read()
+    check(text.count("\nseed: 10\n") == 1, "demo: the config's seed line")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = os.path.join(tmp, "iscnet_test.yaml")
+        with open(cfg_path, "w") as f:
+            f.write(text.replace("\nseed: 10\n", f"\nseed: {SEED}\n"))
+        points = config.load_config(cfg_path)["data"]["num_point"]
+        os.chdir(tmp)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            out_dir = cli.main(["--config", cfg_path, "--mode", "demo",
+                                "--demo_path", SCENE])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = read_launches()
+            out_dir = os.path.abspath(out_dir)
+            files = sorted(os.listdir(out_dir))
+            bbox = np.load(os.path.join(
+                out_dir, "000000_pred_confident_nms_bbox.npz"))
+            obbs, proposal_map = bbox["obbs"], bbox["proposal_map"]
+            scan = TriMesh.load(os.path.join(out_dir, "000000_pc.ply"))
+            plys = [f for f in files if f.startswith("proposal_")]
+            triangles, finite = 0, True
+            for name in plys:
+                mesh = TriMesh.load(os.path.join(out_dir, name))
+                triangles += len(mesh.faces)
+                finite = finite and bool(np.isfinite(mesh.vertices).all())
+        finally:
+            os.chdir(cwd)
+    ids = {int(name.split("_")[1]) for name in plys}
+    emit(phase="demo", wall_s=wall_s, launches=launches, files=len(files),
+         mesh_files=len(plys), boxes=list(obbs.shape),
+         proposal_map=list(proposal_map.shape),
+         scan_vertices=len(scan.vertices), triangles=triangles)
+    k = obbs.shape[0]
+    check(k > 0 and obbs.shape == (k, 7) and proposal_map.shape == (k, 1),
+          f"demo: obbs {obbs.shape}, proposal_map {proposal_map.shape}")
+    check(bool(np.isfinite(obbs).all()), "demo: non-finite boxes")
+    check(len(scan.vertices) == points and len(scan.faces) == 0,
+          f"demo: the scan's PLY holds {len(scan.vertices)} vertices")
+    check(len(files) == 2 + len(plys), f"demo: unexpected files {files}")
+    check(0 < len(plys) <= k and ids <= set(proposal_map[:, 0].tolist()),
+          f"demo: {len(plys)} mesh files for {k} boxes")
+    check(triangles > 0 and finite, "demo: empty or non-finite meshes")
+    check(launches == {"fps": 5, "cbn_decode": 1},
+          f"kernel launches of the demo: {launches}")
+    return launches
+
+
+def phase_detection(dev, scenes: int = 3, num_points: int = 4096):
+    """`configs/iscnet_detection.yaml` in demo mode (phase detection,
+    `vote_fps`): full width with stage times, then a 4096-point scene on
+    the card against the CPU."""
+    import copy
+
+    from rfdnet_tpu_torch import config, demo, weights
+
+    cfg = config.load_config(DETECTION_YAML, mode="demo")
+    check(cfg["data"]["cluster_sampling"] == "vote_fps",
+          "detection: the config's sampling")
+    model = weights.init_seeded(config.build_model(cfg, device=dev), SEED)
+    pc = demo.load_demo_data(SCENE, num_points=cfg["data"]["num_point"],
+                             device=dev)["point_clouds"]
+    run = timed_scenes(
+        lambda marks: demo.generate_grids(cfg, model, pc, marks=marks), scenes)
+    ep, parsed, gen, grids = run.pop("first")
+    small = demo.load_demo_data(SCENE, num_points=num_points,
+                                device=dev)["point_clouds"]
+    ep_s, parsed_s, _, _ = demo.generate_grids(cfg, model, small)
+    ep_c, parsed_c, _, _ = demo.generate_grids(
+        cfg, copy.deepcopy(model).to("cpu"), small.cpu())
+    inds = ("sa1_inds", "sa2_inds", "fp2_inds", "aggregated_vote_inds")
+    inds_equal = all(torch.equal(ep_s[k].cpu(), ep_c[k]) for k in inds)
+    mask_equal = torch.equal(parsed_s["pred_mask"].cpu(),
+                             parsed_c["pred_mask"])
+    obj_err = float((parsed_s["obj_prob"].cpu() - parsed_c["obj_prob"])
+                    .abs().max())
+    emit(phase="detection", points=int(pc.shape[1]),
+         phase_of_model=model.phase,
+         proposals=int(parsed["obj_prob"].shape[1]),
+         pred_mask=int(parsed["pred_mask"].sum()), scenes=scenes,
+         launches=run["launches"], **{k: run[k] for k in (
+             "wall_ms", "wall_ms_min", "wall_ms_max", "stage_ms")},
+         reference_points=num_points, reference_inds_equal=inds_equal,
+         reference_pred_mask_equal=mask_equal,
+         reference_pred_mask=int(parsed_c["pred_mask"].sum()),
+         reference_obj_prob_err=obj_err)
+    check(gen is None and grids is None and not hasattr(model, "completion"),
+          "detection: the model completes shapes")
+    check(bool(torch.isfinite(parsed["pred_corners_3d_upright_camera"]).all())
+          and tuple(parsed["pred_mask"].shape) == (1, 256),
+          "detection: boxes not finite or mask of another shape")
+    check(run["launches"] == {"fps": 5, "cbn_decode": 0},
+          f"kernel launches of the detection path: {run['launches']}")
+    check(inds_equal, "detection: sampling indices differ from the CPU's")
+    check(mask_equal, "detection: NMS keep mask differs from the CPU's")
+    check(obj_err <= 3e-5 + 2e-4, f"detection: obj_prob differs by {obj_err}")
+    return run["launches"]
+
+
 def kernel_summary(fps_rows, cbn_rows, launches):
-    """One entry per kernel of the main path: FPS summed over its five
-    main-path calls, the CBN decoder in the test config's f32 mode."""
+    """One entry per kernel. `launches` and the times are the main path's
+    (to the grids): FPS summed over its five calls there, the CBN decoder
+    in the test config's f32 mode; `launches_by_path` has every driven
+    path's count, and `detection_ms` the FPS calls of the detection path
+    (SA1-4 and vote_fps)."""
     f32 = cbn_rows["float32"]
+    main = [r for r in fps_rows if r["name"] != "vote_fps"]
+    detection = [r for r in fps_rows if r["name"] != "seed_fps"]
+
+    def by_path(kernel):
+        return {path: counts[kernel] for path, counts in launches.items()}
+
     return [
         dict(name="fps", route="cuda", source="rfdnet_tpu_torch/csrc/fps.cu",
-             replaces="rfdnet_tpu/ops/fps.py:121", launches=launches["fps"],
+             replaces="rfdnet_tpu/ops/fps.py:121",
+             launches=launches["main"]["fps"],
+             launches_by_path=by_path("fps"),
              max_abs_err=max(r["max_abs_err"] for r in fps_rows),
-             ms=sum(r["ms"] for r in fps_rows),
-             plain_ms=sum(r["plain_ms"] for r in fps_rows),
-             bound_ms=sum(r["bound_ms"] for r in fps_rows),
-             bound_by=fps_rows[0]["bound_by"], library_ms=None,
-             chain_bound_ms=sum(r["chain_bound_ms"] for r in fps_rows),
-             prev_ms=sum(r["prev_ms"] for r in fps_rows)),
+             ms=sum(r["ms"] for r in main),
+             plain_ms=sum(r["plain_ms"] for r in main),
+             bound_ms=sum(r["bound_ms"] for r in main),
+             bound_by=main[0]["bound_by"], library_ms=None,
+             chain_bound_ms=sum(r["chain_bound_ms"] for r in main),
+             prev_ms=sum(r["prev_ms"] for r in main),
+             detection_ms=sum(r["ms"] for r in detection)),
         dict(name="cbn_decode", route="cuda",
              source="rfdnet_tpu_torch/csrc/cbn_decoder.cu",
              replaces="rfdnet_tpu/ops/cbn_decoder.py:160",
-             launches=launches["cbn_decode"], max_abs_err=f32["max_abs_err"],
+             launches=launches["main"]["cbn_decode"],
+             launches_by_path=by_path("cbn_decode"),
+             max_abs_err=f32["max_abs_err"],
              ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
              bound_by=f32["bound_by"], library_ms=f32["library_ms"]),
     ]
@@ -458,11 +804,16 @@ def main() -> int:
     phase_device()
 
     cfg, data, model = slice_setup(dev)
-    fps_rows = phase_fps(data["point_clouds"][..., :3].contiguous())
+    with torch.no_grad():
+        votes = model.detect(data["point_clouds"])[0]["vote_xyz"].contiguous()
+    fps_rows = phase_fps(data["point_clouds"][..., :3].contiguous(), votes)
     cbn_rows = phase_cbn(model, dev)
     torch.cuda.empty_cache()
-    launches = phase_slice(model, data, cfg)
+    launches, grids, valid, meshes = phase_slice(model, data, cfg)
+    phase_mesh(model, cfg, grids, valid, meshes)
     phase_reference(model, cfg)
+    launches["demo"] = phase_demo()
+    launches["detection"] = phase_detection(dev)
 
     print(json.dumps({"kernels": kernel_summary(fps_rows, cbn_rows,
                                                 launches)}), flush=True)

@@ -1,13 +1,20 @@
-"""Model and evaluation settings of `configs/iscnet_test.yaml`, held as a
-plain dict (the machine with the card has no YAML parser to count on).
+"""Experiment configuration: the YAML files of `configs/` merged over the
+defaults into a plain dict, the dataset constants, and the model factory.
 
 Counterparts: `rfdnet_tpu/config/scannet.py:57-76` (dataset metadata) and
-`rfdnet_tpu/config/config.py:94-190` (eval settings, `build_model`).
-A CPU test holds `TEST_CONFIG` against the YAML and `MEAN_SIZE_ARR`
-against `rfdnet_tpu/assets/scannet_means.npz`.
+`rfdnet_tpu/config/config.py` (defaults, eval settings, `build_model`).
+The machine with the card has no YAML package to count on, so `parse_yaml`
+reads the subset of YAML that the files of `configs/` use. `TEST_CONFIG`
+holds the keys of `configs/iscnet_test.yaml` that the generation path
+reads, for callers without a file. CPU tests hold `parse_yaml` against
+PyYAML on every file of `configs/`, `TEST_CONFIG` against the YAML and
+`MEAN_SIZE_ARR` against `rfdnet_tpu/assets/scannet_means.npz`.
 """
 
 from __future__ import annotations
+
+import copy
+import re
 
 import numpy as np
 
@@ -46,6 +53,7 @@ TEST_CONFIG = {
         "use_cls_for_completion": False,
         "skip_propagate": True,
         "decoder_bf16": False,
+        "threshold": 0.5,
     },
     "test": {
         "phase": "completion",
@@ -57,30 +65,258 @@ TEST_CONFIG = {
         "resolution_0": 32,
         "upsampling_steps": 0,
         "use_sampling": False,
+        "refinement_step": 0,
+        "simplify_nfaces": None,
         "dump_threshold": 0.5,
     },
 }
 
+# the defaults every YAML file is merged over (`config/config.py:32-92`)
+DEFAULTS = {
+    "method": "ISCNet",
+    "resume": False,
+    "finetune": False,
+    "weight": [],
+    "seed": 10,
+    "device": {"num_workers": 0},
+    "data": {
+        "dataset": "scannet",
+        "split": "datasets/splits/fullscan",
+        "shapenet_path": "datasets/ShapeNetv2_data",
+        "num_point": 80000,
+        "num_target": 256,
+        "vote_factor": 1,
+        "cluster_sampling": "vote_fps",
+        "ap_iou_thresh": 0.25,
+        "no_height": False,
+        "use_color_detection": False,
+        "use_color_completion": False,
+        "points_unpackbits": True,
+        "points_subsample": [1024, 1024],
+        "hidden_dim": 512,
+        "c_dim": 512,
+        "z_dim": 32,
+        "threshold": 0.5,
+        "completion_limit_in_train": 10,
+        "use_cls_for_completion": False,
+        "skip_propagate": True,
+        "decoder_bf16": False,
+        "mlp_bf16": False,
+    },
+    "model": {},
+    "optimizer": {
+        "method": "Adam", "lr": 1e-3, "betas": [0.9, 0.999],
+        "eps": 1e-8, "weight_decay": 0,
+    },
+    "scheduler": {"patience": 20, "factor": 0.1, "threshold": 0.01},
+    "bnscheduler": {
+        "bn_decay_step": 20, "bn_decay_rate": 0.5,
+        "bn_momentum_init": 0.5, "bn_momentum_max": 0.001,
+    },
+    "train": {"epochs": 240, "phase": "detection", "freeze": [],
+              "batch_size": 8},
+    "val": {"phase": "detection", "batch_size": 8},
+    "test": {"phase": "completion", "batch_size": 1},
+    "demo": {"phase": "completion"},
+    "generation": {
+        "generate_mesh": True, "resolution_0": 32, "upsampling_steps": 0,
+        "use_sampling": False, "refinement_step": 0, "simplify_nfaces": None,
+        "dump_threshold": 0.5, "dump_results": False, "decoder_impl": None,
+    },
+    "log": {"vis_path": "visualization", "save_results": True,
+            "vis_step": 100, "print_step": 10, "path": "out/iscnet"},
+    "mode": "train",
+}
 
-def eval_config(cfg: dict = TEST_CONFIG, mode: str = "test") -> dict:
-    """NMS and empty-box settings (`config/config.py:121-135`)."""
-    m = cfg[mode]
-    return {
-        "nms_iou": m["nms_iou"],
-        "cls_nms": m["use_cls_nms"],
-        # `config_utils.py:139`: remove_empty_box = not faster_eval
-        "remove_empty_box": not m["faster_eval"],
-    }
+_EVAL_DEFAULTS = {"nms_iou": 0.25, "cls_nms": True, "remove_empty_box": False}
+
+# ------------------------------------------------------------------ YAML
+# PyYAML's (YAML 1.1) readings of plain scalars
+_NULLS = {"", "~", "null", "Null", "NULL"}
+_BOOLS = {**{w: True for w in ("yes", "Yes", "YES", "true", "True", "TRUE",
+                               "on", "On", "ON")},
+          **{w: False for w in ("no", "No", "NO", "false", "False", "FALSE",
+                                "off", "Off", "OFF")}}
+_INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"([-+]?[0-9][0-9_]*\.[0-9_]*([eE][-+][0-9]+)?"
+                    r"|\.[0-9_]+([eE][-+][0-9]+)?)$")
+# anchors, tags and block scalars; numbers in other bases, sexagesimals,
+# infinities and NaNs
+_UNSUPPORTED = re.compile(r"[&*!|>%@`]|[-+]?(0[xXbBoO0-9_]|[0-9_]+:[0-9]"
+                          r"|\.(inf|Inf|INF|nan|NaN|NAN)$)")
+
+
+def _scalar(text: str):
+    text = text.strip()
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        return text[1:-1]
+    if text in _NULLS:
+        return None
+    if text in _BOOLS:
+        return _BOOLS[text]
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if _FLOAT.match(text):
+        return float(text.replace("_", ""))
+    if _UNSUPPORTED.match(text):
+        raise ValueError(f"unsupported YAML value: {text!r}")
+    return text
+
+
+def _split_flow(body: str) -> list[str]:
+    """The comma-separated items of a flow collection's inside, commas in
+    nested brackets left alone."""
+    items, depth, start = [], 0, 0
+    for i, ch in enumerate(body):
+        if ch in "[{":
+            depth += 1
+        elif ch in "]}":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            items.append(body[start:i])
+            start = i + 1
+    items.append(body[start:])
+    return [it for it in (it.strip() for it in items) if it]
+
+
+def _value(text: str):
+    """A scalar or a flow collection (`[a, b]`, `{k: v}`) on one line."""
+    text = text.strip()
+    if text.startswith("[") and text.endswith("]"):
+        return [_value(it) for it in _split_flow(text[1:-1])]
+    if text.startswith("{") and text.endswith("}"):
+        out = {}
+        for it in _split_flow(text[1:-1]):
+            key, sep, val = it.partition(":")
+            if not sep:
+                raise ValueError(f"unsupported YAML flow map entry: {it!r}")
+            out[_scalar(key)] = _value(val)
+        return out
+    if text[:1] in "[{":
+        raise ValueError(f"unsupported YAML (collection over several lines): "
+                         f"{text!r}")
+    return _scalar(text)
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def parse_yaml(text: str):
+    """Read the YAML subset of `configs/*.yaml`: nested block maps, block
+    lists of scalars, one-line flow lists and maps, comments, and PyYAML's
+    plain scalars (null, booleans, ints, floats such as `5.0e-05` and
+    `1.e-3`, strings). Anything else raises `ValueError`."""
+    lines = []
+    for raw in text.splitlines():
+        if "\t" in raw[:len(raw) - len(raw.lstrip())]:
+            raise ValueError("unsupported YAML: tab indentation")
+        body = _strip_comment(raw).rstrip()
+        if body.strip() and body.strip() != "---":
+            lines.append((len(body) - len(body.lstrip()), body.strip()))
+    value, end = _block(lines, 0, lines[0][0]) if lines else (None, 0)
+    if end != len(lines):
+        raise ValueError(f"unsupported YAML near {lines[end][1]!r}")
+    return value
+
+
+def _block(lines, i: int, indent: int):
+    """The map or list that starts at line i with `indent`; returns it and
+    the index of the first line after it."""
+    if lines[i][1].startswith("- ") or lines[i][1] == "-":
+        out = []
+        while i < len(lines) and lines[i][0] == indent and (
+                lines[i][1].startswith("- ") or lines[i][1] == "-"):
+            item = lines[i][1][1:].strip()
+            if not item or re.match(r"[^\[{'\"][^:]*:(\s|$)", item):
+                raise ValueError("unsupported YAML: a list of collections: "
+                                 f"{lines[i][1]!r}")
+            out.append(_value(item))
+            i += 1
+        return out, i
+    out = {}
+    while i < len(lines) and lines[i][0] == indent:
+        key, sep, rest = lines[i][1].partition(":")
+        if not sep or (rest and not rest.startswith(" ")):
+            raise ValueError(f"unsupported YAML line: {lines[i][1]!r}")
+        i += 1
+        if rest.strip():
+            out[_scalar(key)] = _value(rest)
+        elif i < len(lines) and (lines[i][0] > indent or (
+                lines[i][0] == indent and lines[i][1].startswith("-"))):
+            # a nested block; PyYAML lets a list sit at its key's indent
+            out[_scalar(key)], i = _block(lines, i, lines[i][0])
+        else:
+            out[_scalar(key)] = None
+    if i < len(lines) and lines[i][0] > indent:
+        raise ValueError(f"unsupported YAML indentation at {lines[i][1]!r}")
+    return out, i
+
+
+# ---------------------------------------------------------------- config
+def update_recursive(dict1: dict, dict2: dict) -> None:
+    """In-place recursive override of dict1 by dict2."""
+    for k, v in dict2.items():
+        if k not in dict1:
+            dict1[k] = {}
+        if isinstance(v, dict):
+            update_recursive(dict1[k], v)
+        else:
+            dict1[k] = v
+
+
+def load_config(config=None, mode: str = "train") -> dict:
+    """`Config(config, mode).config`: the YAML file at `config` (or a dict
+    of overrides, or nothing) merged over `DEFAULTS`, with `mode` set."""
+    cfg = copy.deepcopy(DEFAULTS)
+    if isinstance(config, str):
+        with open(config) as f:
+            update_recursive(cfg, parse_yaml(f.read()) or {})
+    elif isinstance(config, dict):
+        update_recursive(cfg, config)
+    elif config is not None:
+        raise TypeError(f"config: a path or a dict, not {type(config)}")
+    cfg["mode"] = mode
+    return cfg
+
+
+def _mode(cfg: dict, mode) -> str:
+    return mode or cfg.get("mode", "test")
+
+
+def eval_config(cfg: dict = TEST_CONFIG, mode: str | None = None) -> dict:
+    """NMS and empty-box settings of the mode's section over the defaults
+    (`config/config.py:121-135`). `mode`: `cfg["mode"]` when None, "test"
+    for a dict without one."""
+    m = cfg.get(_mode(cfg, mode), {})
+    out = dict(_EVAL_DEFAULTS)
+    if "nms_iou" in m:
+        out["nms_iou"] = m["nms_iou"]
+    if "use_cls_nms" in m:
+        out["cls_nms"] = m["use_cls_nms"]
+    if "faster_eval" in m:
+        out["remove_empty_box"] = not m["faster_eval"]
+    return out
 
 
 def build_model(cfg: dict = TEST_CONFIG, generate_limit: int = 64,
-                device=None, mode: str = "test"):
+                device=None, mode: str | None = None):
     """`Config.build_model` for the eval path, on `device` (the current
-    CUDA card when None). Weights are uninitialised: load them with
-    `weights.from_flax` or `weights.init_seeded`."""
+    CUDA card when None); the phase is that of the mode's section (`mode`
+    as in `eval_config`). Weights are uninitialised: load them with
+    `weights.from_flax`, `weights.load_npz` or `weights.init_seeded`."""
     from .models.iscnet import ISCNet
 
     dev = resolve_device(device)
+    mode = _mode(cfg, mode)
     d = cfg["data"]
     feat_dim = int(not d["no_height"])
     model = ISCNet(

@@ -1,43 +1,39 @@
-"""Single-scene demo: an .off scan in -> boxes, conditioning codes and
-every selected proposal's dense occupancy logit grid out.
+"""Single-scene demo: a raw .off/.ply scan in -> boxes + instance meshes out.
 
-Counterpart of `rfdnet_tpu/demo.py` (`load_demo_data`, `generate`) up to
-mesh extraction, which is not ported yet: `generate` returns the logit
-grids that marching cubes would read.
+Counterpart of `rfdnet_tpu/demo.py`: load a scan, append the height
+feature (floor = 0.99-percentile z), subsample to `num_point`, run
+detection -> NMS -> skip propagation -> the dense occupancy grid of every
+selected proposal -> marching cubes on the host, and dump
+`proposal_<j>_mesh.ply`, `000000_pc.ply` and the NMS-filtered bbox npz.
+`generate_grids` stops at the logit grids on the device (what a tester
+reads before extraction). Not ported yet: the mesh-to-scan box refit
+(`post_processing`) and the `scene.html` / `pred.png` renderings.
 """
 
 from __future__ import annotations
+
+import os
+import time
 
 import numpy as np
 import torch
 
 from . import resolve_device
-from .config import eval_config
-
-
-def read_off_vertices(path: str) -> np.ndarray:
-    """Vertices (V, 3) float64 of an OFF file (faces are not needed)."""
-    with open(path) as f:
-        tokens = f.read().split()
-    idx = 0
-    if tokens[0] == "OFF":
-        idx = 1
-    elif tokens[0].startswith("OFF"):  # "OFF123 ..." glued header
-        tokens[0] = tokens[0][3:]
-    n_vert = int(tokens[idx])
-    idx += 3
-    return np.array(tokens[idx:idx + 3 * n_vert], dtype=np.float64).reshape(
-        n_vert, 3)
+from .config import build_model, eval_config
+from .eval.refit import _box_params_from_corners
+from .eval.tester import place_mesh_in_box
+from .meshing.generator import Generator3D
+from .meshing.mesh import TriMesh, write_ply
+from .models.iscnet import _mark
 
 
 def load_demo_data(path: str, num_points: int = 80_000,
                    use_height: bool = True, device=None) -> dict:
-    """.off scan -> {"point_clouds": (1, num_points, 3+height) float32} on
-    `device` (the current CUDA card when None). The floor is the
-    0.99-percentile z; the subsample is seeded as the reference's."""
-    if not path.endswith(".off"):
-        raise ValueError(f"unsupported scan format: {path}")
-    points = read_off_vertices(path).astype(np.float32)
+    """.off/.ply scan -> {"point_clouds": (1, num_points, 3+height)
+    float32} on `device` (the current CUDA card when None). The floor is
+    the 0.99-percentile z; the subsample is seeded as the reference's."""
+    dev = resolve_device(device)
+    points = np.asarray(TriMesh.load(path).vertices, dtype=np.float32)
     if use_height:
         floor = np.percentile(points[:, 2], 0.99)
         points = np.concatenate(
@@ -46,18 +42,24 @@ def load_demo_data(path: str, num_points: int = 80_000,
     n = points.shape[0]
     choice = rng.choice(n, num_points, replace=n < num_points)
     return {"point_clouds": torch.from_numpy(
-        np.ascontiguousarray(points[choice][None])).to(resolve_device(device))}
+        np.ascontiguousarray(points[choice][None])).to(dev)}
 
 
-def generate(cfg: dict, model, point_clouds: torch.Tensor, marks=None):
-    """Detection + completion + dense grid decode for one scene, as the
-    test config sets it up. Returns (end_points, parsed, gen, grids), grids
-    (G, r, r, r) logits with r = `generation.resolution_0`. `marks`: see
+def _check_generation(gen_cfg: dict) -> None:
+    if gen_cfg["upsampling_steps"] != 0 or gen_cfg["use_sampling"]:
+        raise NotImplementedError(
+            "only the dense grid (upsampling_steps 0) with the prior-mean z "
+            "(use_sampling false) is ported (ROADMAP.md, 'MISE')")
+
+
+def generate_grids(cfg: dict, model, point_clouds: torch.Tensor, marks=None):
+    """Detection + completion + dense grid decode for one scene, all on
+    the device of `point_clouds`. Returns (end_points, parsed, gen, grids),
+    grids (G, r, r, r) logits with r = `generation.resolution_0`; for a
+    model in the detection phase gen and grids are None. `marks`: see
     `ISCNet.generate`."""
     gen_cfg = cfg["generation"]
-    if gen_cfg["upsampling_steps"] != 0 or gen_cfg["use_sampling"]:
-        raise ValueError("only the dense grid (upsampling_steps 0) with the "
-                         "prior-mean z (use_sampling false) is ported")
+    _check_generation(gen_cfg)
     ec = eval_config(cfg)
     out = model.generate(
         {"point_clouds": point_clouds},
@@ -66,4 +68,128 @@ def generate(cfg: dict, model, point_clouds: torch.Tensor, marks=None):
         remove_empty_box=ec["remove_empty_box"],
         decode_grid_res=gen_cfg["resolution_0"], marks=marks,
     )
-    return out["end_points"], out["parsed"], out["gen"], out["grids"]
+    return (out["end_points"], out["parsed"], out.get("gen"),
+            out.get("grids"))
+
+
+def make_generator(cfg: dict, model) -> Generator3D:
+    """The mesh generator that `cfg` describes over `model`'s decoder. It
+    owns the pinned host buffer the grids are copied into: keep one for a
+    run of scenes."""
+    gen_cfg = cfg["generation"]
+    _check_generation(gen_cfg)
+    return Generator3D(
+        model.decode_occupancy, threshold=cfg["data"]["threshold"],
+        resolution0=gen_cfg["resolution_0"],
+        upsampling_steps=gen_cfg["upsampling_steps"],
+        refinement_step=gen_cfg.get("refinement_step", 0) or 0,
+        simplify_nfaces=gen_cfg.get("simplify_nfaces"),
+        with_normals=gen_cfg.get("with_normals", False),
+    )
+
+
+# inputs of the decoder that nothing on the host reads (refinement and
+# normals are off): they stay on the device
+_DEVICE_ONLY = ("features", "cls_codes")
+
+
+def _to_numpy(d: dict) -> dict:
+    return {k: v if k in _DEVICE_ONLY else v.cpu().numpy()
+            for k, v in d.items()}
+
+
+def generate(cfg: dict, model, data: dict, post_processing: bool = False,
+             generator: Generator3D | None = None, marks=None,
+             host_ms: dict | None = None):
+    """Detection + completion + mesh extraction for one scene. Returns
+    (parsed, gen, meshes): numpy dicts (gen's `features` and `cls_codes`
+    stay tensors on the device) and one `TriMesh` per slot, empty for an
+    invalid slot.
+
+    `generator`: from `make_generator`, to reuse its host buffer over
+    scenes. `marks`: see `ISCNet.generate`. `host_ms`: a dict that receives
+    the host-clock milliseconds of the copy to the host (`d2h`: grids,
+    parsed and gen) and of the extraction (`mesh`); asking for them makes
+    the host wait for the device before the copy starts."""
+    if post_processing:
+        raise NotImplementedError(
+            "post_processing needs the box refit (ROADMAP.md, 'Refit')")
+    if model.phase != "completion":
+        raise ValueError(f"a model in the {model.phase} phase completes no "
+                         "shapes: call generate_grids for its detections")
+    generator = generator or make_generator(cfg, model)
+    ec = eval_config(cfg)
+    pc = data["point_clouds"]
+    out = model.generate(
+        {"point_clouds": pc}, nms_iou=ec["nms_iou"],
+        use_cls_nms=ec["cls_nms"],
+        dump_threshold=cfg["generation"]["dump_threshold"],
+        remove_empty_box=ec["remove_empty_box"], marks=marks,
+    )
+    gen = out["gen"]
+    grids = generator.decode_grids(gen["features"], gen["cls_codes"])
+    _mark(marks, "grid_decode")
+    if host_ms is not None and pc.device.type == "cuda":
+        torch.cuda.synchronize(pc.device)
+    t0 = time.perf_counter()
+    download = generator.start_download(grids)
+    parsed, gen = _to_numpy(out["parsed"]), _to_numpy(gen)
+    host_grids = download.wait()
+    t1 = time.perf_counter()
+    meshes = generator.meshes_from_grids(host_grids,
+                                         valid=gen["valid"].reshape(-1))
+    if host_ms is not None:
+        host_ms["d2h"] = (t1 - t0) * 1e3
+        host_ms["mesh"] = (time.perf_counter() - t1) * 1e3
+    return parsed, gen, meshes
+
+
+def save_visualization(data: dict, parsed: dict, gen: dict, meshes,
+                       out_dir: str) -> str:
+    """The scene's points as `000000_pc.ply`, one `proposal_<j>_mesh.ply`
+    per valid slot with a non-empty mesh (placed in its box, scan frame),
+    and `000000_pred_confident_nms_bbox.npz`: `obbs` (K, 7) [center, size,
+    heading] depth-frame boxes and `proposal_map` (K, 1) proposal ids, one
+    row per valid slot."""
+    os.makedirs(out_dir, exist_ok=True)
+    pc = data["point_clouds"]
+    if isinstance(pc, torch.Tensor):
+        pc = pc.cpu().numpy()
+    write_ply(os.path.join(out_dir, "000000_pc.ply"),
+              np.asarray(pc)[0, :, :3], np.zeros((0, 3), np.int32))
+    corners = parsed["pred_corners_3d_upright_camera"]
+    boxes, proposal_map = [], []
+    for g in range(gen["proposal_ids"].shape[1]):
+        if not gen["valid"][0, g]:
+            continue
+        j = int(gen["proposal_ids"][0, g, 0])
+        if len(meshes[g].vertices):
+            place_mesh_in_box(meshes[g], corners[0, j]).export(
+                os.path.join(out_dir, f"proposal_{j}_mesh.ply"))
+        boxes.append(_box_params_from_corners(corners[0, j]))
+        proposal_map.append([j])
+    np.savez(
+        os.path.join(out_dir, "000000_pred_confident_nms_bbox.npz"),
+        obbs=np.array(boxes), proposal_map=np.array(proposal_map),
+    )
+    return out_dir
+
+
+def run(cfg: dict, demo_path: str, device=None, log=print) -> str:
+    """Load the scan, build the model with the configured weights
+    (`cli.restore_weights`), generate, and dump under
+    `out/demo/visualization/<scene>`. Returns that directory."""
+    from .cli import restore_weights
+
+    t0 = time.time()
+    data = load_demo_data(
+        demo_path, num_points=cfg["data"]["num_point"],
+        use_height=not cfg["data"]["no_height"], device=device,
+    )
+    model = restore_weights(cfg, build_model(cfg, device=device), log=log)
+    parsed, gen, meshes = generate(cfg, model, data)
+    scene = os.path.splitext(os.path.basename(demo_path))[0]
+    out_dir = os.path.join("out/demo", "visualization", scene)
+    save_visualization(data, parsed, gen, meshes, out_dir)
+    log(f"Time elapsed: {time.time() - t0:.2f}s -> {out_dir}")
+    return out_dir

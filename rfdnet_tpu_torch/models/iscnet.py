@@ -80,9 +80,10 @@ class ISCNet(nn.Module):
                 num_class=num_class, decoder_bf16=decoder_bf16,
             )
 
-    def detect(self, point_clouds, marks=None):
+    def detect(self, point_clouds, marks=None, generator=None):
         """backbone -> voting -> proposal. Returns (end_points,
-        proposal_features (B, K, 128))."""
+        proposal_features (B, K, 128)). `generator`: see
+        `ProposalModule.forward`."""
         end_points = self.backbone(point_clouds)
         _mark(marks, "backbone")
         xyz = end_points["fp2_xyz"]
@@ -96,8 +97,8 @@ class ISCNet(nn.Module):
         features = features / torch.clamp(norm, min=1e-8)
         end_points["vote_xyz"] = xyz
         end_points["vote_features"] = features
-        end_points, proposal_features = self.detection(xyz, features,
-                                                       end_points)
+        end_points, proposal_features = self.detection(
+            xyz, features, end_points, generator=generator)
         _mark(marks, "voting_proposal")
         return end_points, proposal_features
 
@@ -231,10 +232,11 @@ class ISCNet(nn.Module):
     def generate(self, data: dict, nms_iou=0.25, use_cls_nms=True,
                  dump_threshold=0.5, remove_empty_box=False,
                  decode_grid_res=None, grid_padding=0.1, marks=None):
-        """Test-time forward: detection + NMS, completion conditioning and,
-        with `decode_grid_res`, every selected proposal's dense occupancy
-        logit grid (`out["grids"]`, (B*G, nx, nx, nx)). `marks`: optional
-        list that receives a recorded CUDA event after each stage."""
+        """Test-time forward: detection + NMS and, in the completion phase,
+        completion conditioning and, with `decode_grid_res`, every selected
+        proposal's dense occupancy logit grid (`out["grids"]`,
+        (B*G, nx, nx, nx)). `marks`: optional list that receives a recorded
+        CUDA event after each stage."""
         pc = data["point_clouds"]
         _mark(marks, "start")
         end_points, proposal_features, parsed = self.generate_detections(

@@ -1,7 +1,10 @@
 """Proposal module: vote aggregation + box parameter head.
 
-Counterpart of `rfdnet_tpu/models/proposal.py` with the `seed_fps`
-sampling of the test config (`vote_fps` and `random` are not ported yet).
+Counterpart of `rfdnet_tpu/models/proposal.py`, with its three ways of
+choosing the cluster centres among the votes: `seed_fps` (FPS over the
+seeds, the test config), `vote_fps` (FPS over the votes themselves, the
+detection config) and `random` (indices drawn from a generator the caller
+passes).
 """
 
 from __future__ import annotations
@@ -36,8 +39,9 @@ class ProposalModule(nn.Module):
                  num_size_cluster: int = 8, num_proposal: int = 256,
                  sampling: str = "seed_fps", seed_feat_dim: int = 256):
         super().__init__()
-        if sampling != "seed_fps":
-            raise ValueError(f"sampling {sampling!r} is not ported")
+        if sampling not in ("seed_fps", "vote_fps", "random"):
+            raise ValueError(f"Unknown sampling strategy: {sampling}")
+        self.sampling = sampling
         self.num_class, self.num_proposal = num_class, num_proposal
         self.num_heading_bin = num_heading_bin
         self.num_size_cluster = num_size_cluster
@@ -52,13 +56,28 @@ class ProposalModule(nn.Module):
         head = 2 + 3 + num_heading_bin * 2 + num_size_cluster * 4 + num_class
         self.conv3 = Dense(128, head)
 
-    def forward(self, xyz, features, end_points):
+    def forward(self, xyz, features, end_points, generator=None):
         """xyz (B, V, 3) votes, features (B, V, C) -> (end_points updates,
-        proposal_features (B, K, 128))."""
-        sample_inds = furthest_point_sample(
-            end_points["seed_xyz"].contiguous(), self.num_proposal)
-        new_xyz, new_features, _ = self.vote_aggregation(
-            xyz, features, inds=sample_inds)
+        proposal_features (B, K, 128)). `generator`: the `torch.Generator`
+        that `random` sampling draws from (required there, unused
+        otherwise)."""
+        if self.sampling == "vote_fps":
+            new_xyz, new_features, sample_inds = self.vote_aggregation(
+                xyz, features)
+        else:
+            if self.sampling == "seed_fps":
+                sample_inds = furthest_point_sample(
+                    end_points["seed_xyz"].contiguous(), self.num_proposal)
+            else:
+                if generator is None:
+                    raise ValueError("random sampling requires a generator")
+                num_seed = end_points["seed_xyz"].shape[1]
+                sample_inds = torch.randint(
+                    0, num_seed, (xyz.shape[0], self.num_proposal),
+                    generator=generator, dtype=torch.int32,
+                    device=generator.device).to(xyz.device)
+            new_xyz, new_features, _ = self.vote_aggregation(
+                xyz, features, inds=sample_inds)
         out = dict(end_points)
         out["aggregated_vote_xyz"] = new_xyz
         out["aggregated_vote_inds"] = sample_inds

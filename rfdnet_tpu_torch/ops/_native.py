@@ -1,11 +1,15 @@
-"""Build and load the hand-written CUDA kernels of `rfdnet_tpu_torch/csrc`.
+"""Build and load the native libraries of `rfdnet_tpu_torch/csrc`.
 
-Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into its own
-shared library with a plain C interface, loaded with `ctypes`. The build
-happens at first use, into `csrc/build/` (listed in `.gitignore`), under a
-name that carries a hash of the source and flags, so an edited source is
-never served by a stale library. `build()` starts one `nvcc` per source
-at once, so a cold start costs the slowest build, not their sum.
+Each hand-written CUDA kernel `csrc/<name>.cu` compiles with `nvcc` for
+`sm_90a`, and the host marching cubes `csrc/meshing.cpp` with `g++`, into
+its own shared library with a plain C interface, loaded with `ctypes`.
+The build happens at first use, into `csrc/build/` (listed in
+`.gitignore`), under a name that carries a hash of the source and flags,
+so an edited source is never served by a stale library. The host library
+is built with `-march=native`, which is valid only on CPUs with the same
+instruction sets, so its name also carries a tag of the host's CPU.
+`build()` starts one compiler per source at once, so a cold start costs
+the slowest build, not their sum.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import re
 import shutil
 import subprocess
@@ -23,11 +28,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("fps", "cbn_decoder")
+KERNELS = ("fps", "cbn_decoder")   # csrc/<name>.cu, nvcc
+HOST_LIBS = ("meshing",)           # csrc/<name>.cpp, g++
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
+GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -40,24 +47,64 @@ def _nvcc() -> str:
     return path
 
 
+def _gxx() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found: the host library cannot be built")
+    return path
+
+
+@functools.cache
+def host_tag() -> str:
+    """The machine type and a hash of the CPU's feature flags: what a
+    `-march=native` binary depends on."""
+    flags = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    flags = line
+                    break
+    except OSError:
+        pass
+    return platform.machine() + ":" + hashlib.sha1(flags.encode()).hexdigest()
+
+
+def _source(name: str) -> Path:
+    if name not in KERNELS + HOST_LIBS:
+        raise ValueError(f"no native library named {name!r}")
+    return CSRC / (f"{name}.cu" if name in KERNELS else f"{name}.cpp")
+
+
+def _compile_command(name: str) -> list[str]:
+    """The compiler and flags of `name`, without source and output."""
+    if name in KERNELS:
+        return [_nvcc(), *NVCC_FLAGS]
+    return [_gxx(), *GXX_FLAGS]
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = NVCC_FLAGS if name in KERNELS else GXX_FLAGS + (host_tag(),)
+    digest = hashlib.sha1(
+        _source(name).read_bytes() + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build(names=KERNELS) -> dict[str, str]:
+def build(names=KERNELS + HOST_LIBS) -> dict[str, str]:
     """Compile every library of `names` that is not built yet, all at once.
-    Returns the compiler's messages (ptxas register and spill counts) per
-    name built; raises if any build fails."""
+    Returns the compiler's messages (for a kernel, ptxas register and spill
+    counts) per name built; raises if a compiler is missing or any build
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {name: lib_path(name) for name in names}
+    # every compiler is looked up before any is started
+    cmds = {name: _compile_command(name) for name, out in todo.items()
+            if not out.exists()}
     procs = {}
-    for name in names:
-        out = lib_path(name)
-        if out.exists():
-            continue
+    for name, compiler in cmds.items():
+        out = todo[name]
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [*compiler, "-o", str(tmp), str(_source(name))]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ), tmp, out)
@@ -71,7 +118,7 @@ def build(names=KERNELS) -> dict[str, str]:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError(
-            "nvcc failed for " + ", ".join(failed) + ":\n"
+            "the build failed for " + ", ".join(failed) + ":\n"
             + "\n".join(logs[n] for n in failed)
         )
     return logs
@@ -95,7 +142,7 @@ def ptxas_summary(log: str) -> list[dict]:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library of `name`'s source, built first if needed."""
     path = lib_path(name)
     if not path.exists():
         build((name,))

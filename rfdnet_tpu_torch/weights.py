@@ -1,5 +1,7 @@
-"""Weights for the port: the bridge from `rfdnet_tpu`'s flax variables, and
-a seeded init of the port's own.
+"""Weights for the port: the bridge from `rfdnet_tpu`'s flax variables
+(in memory, or as the flat `.npz` that `tools/export_torch_weights.py`
+writes from a checkpoint of the JAX package), and a seeded init of the
+port's own.
 
 Module names in the port follow the flax tree, so the bridge is a rename:
 - Dense `kernel` (in, out) -> `weight` (out, in), `bias` -> `bias`;
@@ -51,6 +53,41 @@ def from_flax(variables) -> dict[str, torch.Tensor]:
         t = torch.from_numpy(np.array(leaf, dtype=np.float32))
         out[".".join(path[:-1] + (_STAT_LEAVES[path[-1]],))] = t
     return out
+
+
+@torch.no_grad()
+def load_npz(model: nn.Module, path: str, log=print) -> nn.Module:
+    """Load a flat `.npz` of flax paths (`params/<module>/.../kernel`,
+    `batch_stats/<module>/.../mean`) into `model`, in place.
+
+    As `rfdnet_tpu.train.checkpoint.partial_load`: a tensor of the model is
+    loaded when the file holds its key with its shape and keeps its value
+    otherwise; the top-level submodules with a tensor left out are reported
+    through `log` ("... subnet missed."), then the ones loaded whole."""
+    tree = {"params": {}, "batch_stats": {}}
+    with np.load(path) as npz:
+        for key in npz.files:
+            parts = key.split("/")
+            if parts[0] not in tree or len(parts) < 3:
+                raise ValueError(f"{path}: unexpected key {key!r}")
+            node = tree
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = npz[key]
+    source = from_flax(tree)
+    missed, roots = set(), set()
+    for key, t in model.state_dict(keep_vars=True).items():
+        root = key.split(".")[0]
+        roots.add(root)
+        s = source.get(key)
+        if s is not None and s.shape == t.shape:
+            t.copy_(s)
+        else:
+            missed.add(root)
+    if log:
+        log(f"{missed or set()} subnet missed.")
+        log(f"{sorted(roots - missed)} subnet weights loaded.")
+    return model
 
 
 @torch.no_grad()

@@ -1,5 +1,6 @@
-"""Boundaries of the port: no JAX inside it, its settings equal the test
-config's, and its entry points never drop to the CPU on their own.
+"""Boundaries of the port: no JAX, YAML package or `rfdnet_tpu` inside it,
+its settings equal the test config's, and its entry points never drop to
+the CPU on their own.
 
 The import check reads the source (AST) rather than `sys.modules`, because
 JAX may already be imported when the interpreter starts.
@@ -19,7 +20,7 @@ from rfdnet_tpu_torch import demo
 from torch_parity import TEST_YAML
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "rfdnet_tpu")
+FORBIDDEN = ("jax", "flax", "orbax", "yaml", "rfdnet_tpu")
 
 
 def _port_sources():

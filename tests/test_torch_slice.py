@@ -1,7 +1,7 @@
-"""The whole slice: the port's `ISCNet.generate` (detection, box decode,
-empty-box filter, NMS, top-G selection, skip propagation, dense grid
-decode through the fused CBN decoder) against `rfdnet_tpu`'s on a
-4096-point scene, both from one set of flax variables, on the CPU, at the
+"""The whole slice up to the grids (`demo.generate_grids`): the port's
+`ISCNet.generate` (detection, box decode, empty-box filter, NMS, top-G
+selection, skip propagation, dense grid decode through the fused CBN
+decoder) against `rfdnet_tpu`'s on a 4096-point scene, both from one set of flax variables, on the CPU, at the
 test config's dump threshold (0.5) and at a low one that keeps valid slots.
 
 Tolerances:
@@ -25,7 +25,7 @@ import torch
 
 from rfdnet_tpu.models import ISCNet
 from rfdnet_tpu_torch import config as tconfig
-from rfdnet_tpu_torch.demo import generate
+from rfdnet_tpu_torch.demo import generate_grids
 from torch_parity import assert_close, assert_equal, iscnet_pair, scene, t
 
 GRID = 8
@@ -50,7 +50,7 @@ def test_generate_matches_jax(pair, threshold):
     cfg = dict(tconfig.TEST_CONFIG)
     cfg["generation"] = dict(cfg["generation"], resolution_0=GRID,
                              dump_threshold=threshold)
-    end_points, parsed, gen, grids = generate(cfg, port, t(pc))
+    end_points, parsed, gen, grids = generate_grids(cfg, port, t(pc))
 
     assert set(end_points) == set(want["end_points"])
     for k, v in want["end_points"].items():

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of one scene goes in the PyTorch port, on one CUDA card.
 
-Runs the test config's generation path (`rfdnet_tpu_torch.demo.generate`,
-80000-point demo scene, seeded weights) once to warm up, then once under
+Runs the test config's generation path up to the logit grids
+(`rfdnet_tpu_torch.demo.generate_grids`, 80000-point demo scene, seeded
+weights) once to warm up, then once under
 `torch.profiler` (CPU + CUDA activities), and prints one JSON line:
 - the card's name and power limit (`nvidia-smi`);
 - `window_ms`: host clock around the profiled scene (ends in a
@@ -49,13 +50,13 @@ def main() -> int:
     smi = chip_smoke.nvidia_smi()
     cfg, data, model = chip_smoke.slice_setup(torch.device("cuda", 0))
     pc = data["point_clouds"]
-    demo.generate(cfg, model, pc)  # warm-up: kernel builds, cuBLAS init
+    demo.generate_grids(cfg, model, pc)  # warm-up: kernel builds, cuBLAS init
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        demo.generate(cfg, model, pc)
+        demo.generate_grids(cfg, model, pc)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
 
