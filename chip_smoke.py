@@ -53,6 +53,19 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
 8. detection: `configs/iscnet_detection.yaml` (`vote_fps`, no completion)
    at full width, three scenes after a warm-up, with stage times; on 4096
    points the sampling indices and NMS keep mask equal a CPU run's.
+9. tester: three full-width synthetic scenes written in the dataset's
+   on-disk layout (80000 points, 12 objects each) and a copy of
+   `configs/iscnet_test.yaml` pointing at them (seed as in `demo`):
+   `rfdnet_tpu_torch.cli.main --mode test` on the card (metrics and the
+   dumps read back, launches counted: FPS 5 and CBN 3 a scene); the
+   Tester's scene time (`wall_scene_ms`) and stages with a scene in
+   flight and without, in turns; the CBN kernel against its plain
+   version at the two decodes this path adds (the completion loss, 2048
+   points with the posterior z, and the 16^3 voxels, 4096 points), on the
+   operands the path gives it; and one scene at 4096 points on the card
+   against the CPU (same weights): NMS mask, proposal and GT ids equal,
+   losses within tolerance, voxel bits equal away from the iso level,
+   refit boxes close where both meshes are equal.
 Then the `kernels` summary line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -319,45 +332,54 @@ def decoder_operands(model, nb: int, res: int, dev):
         return onet.fused_operands(pts[None].expand(nb, -1, -1), z, c)
 
 
+def cbn_row(ops, dtype=torch.float32, reps: int = 3) -> dict:
+    """The CBN kernel against its plain version on `ops` (the operands of
+    `fused_cbn_decode`) in one operand type: error, tolerance, times of
+    the kernel, the plain version and the cuBLAS chain, and the bound.
+    f32: the same math, sums of 256 products in another order chained
+    through 10 layers. bf16: the kernel and the plain version round at the
+    same points, so they differ only where an f32 sum in another order
+    lands on the other side of a bf16 rounding. Read on an H100: 1.2e-7 at
+    scale 1 in both modes, with the bf16 chain 6.9e-3 from the f32 one;
+    the bf16 limit stays below that gap."""
+    from rfdnet_tpu_torch.ops.cbn_decoder import cbn_decode_plain, fused_cbn_decode
+
+    nb, T = ops[0].shape[0], ops[0].shape[1]
+    k = fused_cbn_decode(*ops, mxu_dtype=dtype)
+    p = cbn_decode_plain(*ops, mxu_dtype=dtype)
+    torch.cuda.synchronize()
+    scale = max(float(p.abs().max()), 1.0)
+    b, by = bound_ms(nb * T * 256 * 4 + nb * T * 4,
+                     2.0 * nb * T * 10 * 256 * 256,
+                     F32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+    return dict(
+        nb=nb, t=T, out=k, max_abs_err=float((k - p).abs().max()),
+        tol=(1e-4 if dtype == torch.float32 else 1e-3) * scale, scale=scale,
+        ms=cuda_ms(lambda: fused_cbn_decode(*ops, mxu_dtype=dtype), reps),
+        plain_ms=cuda_ms(lambda: cbn_decode_plain(*ops, mxu_dtype=dtype), 1),
+        library_ms=cuda_ms(lambda: library_chain(*ops, dtype), reps),
+        bound_ms=b, bound_by=by)
+
+
 def phase_cbn(model, dev, nb: int = 64, res: int = 32, reps: int = 3):
     from rfdnet_tpu_torch.ops.cbn_decoder import cbn_decode_plain, fused_cbn_decode
 
     ops = decoder_operands(model, nb, res, dev)
     T = res ** 3
-    flops = 2.0 * nb * T * 10 * 256 * 256
-    nbytes = nb * T * 256 * 4 + nb * T * 4
-    rows, plain = {}, {}
-    for dname, dtype, peak in (("float32", torch.float32, F32_FLOPS),
-                               ("bfloat16", torch.bfloat16, BF16_FLOPS)):
-        k = fused_cbn_decode(*ops, mxu_dtype=dtype)
-        p = plain[dname] = cbn_decode_plain(*ops, mxu_dtype=dtype)
-        torch.cuda.synchronize()
-        err = float((k - p).abs().max())
-        scale = max(float(p.abs().max()), 1.0)
-        # f32: the same math, sums of 256 products in another order chained
-        # through 10 layers. bf16: the kernel and the plain version round
-        # at the same points, so they differ only where an f32 sum in
-        # another order lands on the other side of a bf16 rounding. Read
-        # on an H100: 1.2e-7 at scale 1 in both modes, with the bf16 chain
-        # 6.9e-3 from the f32 one. The bf16 limit stays below that gap,
-        # and the kernel must sit nearer the plain bf16 chain than the
-        # plain f32 one, which fails a kernel that skips the roundings.
-        tol = (1e-4 if dtype == torch.float32 else 1e-3) * scale
-        gap = (float((k - plain["float32"]).abs().max())
-               if dtype == torch.bfloat16 else None)
-        ok = err <= tol and (gap is None or err < gap)
-        b, by = bound_ms(nbytes, flops, peak)
-        rows[dname] = dict(
-            max_abs_err=err, tol=tol, scale=scale, err_vs_plain_f32=gap,
-            ms=cuda_ms(lambda: fused_cbn_decode(*ops, mxu_dtype=dtype),
-                       reps),
-            plain_ms=cuda_ms(lambda: cbn_decode_plain(
-                *ops, mxu_dtype=dtype), 1),
-            library_ms=cuda_ms(lambda: library_chain(*ops, dtype), reps),
-            bound_ms=b, bound_by=by,
-        )
-        check(ok, f"cbn_decode {dname}: kernel vs plain max err {err} > {tol}"
-                  f" or not below its distance to the f32 chain {gap}")
+    rows, outs = {}, {}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        row = rows[dname] = cbn_row(ops, dtype, reps)
+        outs[dname] = row.pop("out")
+        # the bf16 kernel must sit nearer the plain bf16 chain than the
+        # plain f32 one, which fails a kernel that skips the roundings
+        gap = row["err_vs_plain_f32"] = (
+            float((outs[dname] - cbn_decode_plain(*ops)).abs().max())
+            if dtype == torch.bfloat16 else None)
+        err, tol = row["max_abs_err"], row["tol"]
+        check(err <= tol and (gap is None or err < gap),
+              f"cbn_decode {dname}: kernel vs plain max err {err} > {tol}"
+              f" or not below its distance to the f32 chain {gap}")
     # a T that is no multiple of the kernel's 64-point tile: the wrapper pads
     ragged = decoder_operands(model, 3, 10, dev)
     err = float((fused_cbn_decode(*ragged) - cbn_decode_plain(*ragged))
@@ -419,8 +441,8 @@ def timed_scenes(run_scene, scenes: int) -> dict:
 
 def phase_slice(model, data, cfg, scenes: int = 10):
     """The main path twice: to the grids on the card (`generate_grids`),
-    and on to the meshes on the host (`generate`, with one generator, so
-    one pinned buffer, over the scenes). The outputs checked are those of
+    and on to the meshes on the host (`generate`, with one generator over
+    the scenes). The outputs checked are those of
     each run's first timed scene. Returns the launches of both runs and
     the grids, valid flags and meshes for the `mesh` phase."""
     from rfdnet_tpu_torch import demo
@@ -751,12 +773,266 @@ def phase_detection(dev, scenes: int = 3, num_points: int = 4096):
     return run["launches"]
 
 
-def kernel_summary(fps_rows, cbn_rows, launches):
+TESTER_SCENES = 3
+
+
+def tester_config(tmp: str) -> str:
+    """Three full-width synthetic scenes in the dataset's on-disk layout
+    under `tmp`, and a copy of the test config that reads them, with this
+    script's seed. Returns the copy's path."""
+    from rfdnet_tpu_torch.data.synthetic import write_scannet_scenes
+
+    paths = write_scannet_scenes(os.path.join(tmp, "data"), TESTER_SCENES,
+                                 seed=SEED, num_points=80000, num_objects=12)
+    with open(TEST_YAML) as f:
+        text = f.read()
+    for old, new in (("\nseed: 10\n", f"\nseed: {SEED}\n"),
+                     ("split: datasets/splits/fullscan",
+                      f"split: {paths['split']}"),
+                     ("shapenet_path: datasets/ShapeNetv2_data",
+                      f"shapenet_path: {paths['shapenet_path']}")):
+        check(text.count(old) == 1, f"tester: the config's line {old!r}")
+        text = text.replace(old, new)
+    path = os.path.join(tmp, "iscnet_test.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def read_test_dumps(root: str, points: int, objects: int) -> dict:
+    """The Tester's per-scene files under `root`, read back and checked."""
+    import numpy as np
+
+    from rfdnet_tpu_torch.meshing.mesh import TriMesh
+
+    scenes = sorted(os.listdir(root))
+    check(len(scenes) == TESTER_SCENES, f"tester: dumps of {scenes}")
+    mesh_files = triangles = 0
+    for scene in scenes:
+        d = os.path.join(root, scene)
+        files = os.listdir(d)
+        for name in ("000000_pc.ply", "000000_pred_confident_nms_bbox.ply",
+                     "pred_map_cls.txt", "gt_map_cls.txt"):
+            check(name in files, f"tester: {scene} has no {name}")
+        scan = TriMesh.load(os.path.join(d, "000000_pc.ply"))
+        check(len(scan.vertices) == points, f"tester: {scene}'s scan")
+        with open(os.path.join(d, "gt_map_cls.txt")) as f:
+            check(len(f.read().split("\n")) - 1 == objects,
+                  f"tester: {scene}'s GT boxes")
+        for name in files:
+            if name.startswith("proposal_"):
+                mesh = TriMesh.load(os.path.join(d, name))
+                check(len(mesh.faces) > 0 and bool(np.isfinite(
+                    mesh.vertices).all()), f"tester: {scene}/{name}")
+                mesh_files += 1
+                triangles += len(mesh.faces)
+    check(mesh_files > 0, "tester: no mesh written")
+    return dict(scenes=len(scenes), mesh_files=mesh_files,
+                triangles=triangles)
+
+
+def tester_reference(cfg, model, num_points: int = 4096) -> None:
+    """One scene at `num_points` through `ISCNet.generate` with GT fields on
+    the card and on the CPU (same weights), then the refit of the CPU's
+    meshes on both. Exact: the NMS mask, and the selected proposals with
+    their GT ids and classes, up to near-ties: objectness is flat with
+    seeded weights and the two devices' values differ by ~1e-7, so two
+    proposals whose scores are that close may swap slots, or one may take
+    the last slot in place of the other (allowed within 1e-6 of the last
+    selected score). Completion and mask loss, when both selected the same
+    proposals: rtol 1e-4. Voxel bits of the proposals both selected: equal
+    wherever the CPU's logit is over 1e-4 from the iso level. Refit corners
+    after 30 steps: within 5e-2, and moved from the predicted boxes. On
+    the CPU the two packages agree to 4e-6 for 20 steps, until a chamfer
+    match flips on a near-tie; across devices a run read 1.7e-2: the best
+    step is picked by a strict `<` on a loss the devices round apart, and
+    one Adam step (1e-2 in position and in heading) moves a corner by up
+    to 1e-2 x (1 + the box's half-diagonal)."""
+    import copy
+
+    import numpy as np
+
+    from rfdnet_tpu_torch import cli, demo
+    from rfdnet_tpu_torch.eval.refit import fit_meshes_to_scan
+    from rfdnet_tpu_torch.eval.tester import _DEVICE_KEYS
+    from rfdnet_tpu_torch.models.occnet import make_3d_grid
+
+    small = copy.deepcopy(cfg)
+    small["data"]["num_point"] = num_points
+    batch = next(iter(cli._build_loaders(small, ["test"])["test"]))
+    cpu_model = copy.deepcopy(model).to("cpu")
+    gen_cfg = cfg["generation"]
+    outs, slots = {}, {}
+    for name, m in (("card", model), ("cpu", cpu_model)):
+        dev = next(m.parameters()).device
+        out = outs[name] = m.generate(
+            {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
+             for k in _DEVICE_KEYS}, dump_threshold=gen_cfg["dump_threshold"],
+            remove_empty_box=True, decode_grid_res=gen_cfg["resolution_0"])
+        ids = out["gen"]["proposal_ids"][0].cpu().numpy()
+        valid = out["gen"]["valid"][0].cpu().numpy()
+        # proposal -> (slot, GT id, class)
+        slots[name] = {int(r[0]): (g, int(r[1]), int(r[2]))
+                       for g, r in enumerate(ids) if valid[g]}
+    card, cpu = outs["card"], outs["cpu"]
+    check(torch.equal(card["parsed"]["pred_mask"].cpu(),
+                      cpu["parsed"]["pred_mask"]),
+          "tester reference: NMS masks differ")
+    probs = cpu["parsed"]["obj_prob"][0].numpy()
+    last = min(probs[j] for j in slots["cpu"])
+    swapped = set(slots["card"]) ^ set(slots["cpu"])
+    common = sorted(set(slots["card"]) & set(slots["cpu"]))
+    check(all(abs(probs[j] - last) <= 1e-6 for j in swapped),
+          f"tester reference: selections differ beyond near-ties: {swapped}")
+    check(all(slots["card"][j][1:] == slots["cpu"][j][1:] for j in common),
+          "tester reference: GT ids or classes differ")
+    moved_slots = sum(slots["card"][j][0] != slots["cpu"][j][0]
+                      for j in common)
+    errs = {}
+    if not swapped:
+        for k, v in (("completion_loss", card["completion_loss"]),
+                     ("mask_loss", card["gen"]["mask_loss"])):
+            want = cpu[k] if k in cpu else cpu["gen"][k]
+            errs[k] = float((v.cpu() - want).abs())
+            check(errs[k] <= 1e-4 * max(float(want.abs()), 1.0),
+                  f"tester reference: {k} {float(v)} against {float(want)}")
+    G = cpu["gen"]["features"].shape[0]
+    p16 = make_3d_grid([-0.5 + 1 / 32] * 3, [0.5 - 1 / 32] * 3, (16,) * 3)
+    logits = cpu_model.decode_occupancy(cpu["gen"]["features"],
+                                        cpu["gen"]["cls_codes"],
+                                        p16[None].expand(G, -1, -1)).numpy()
+    bits = {name: np.unpackbits(o["shape_voxels_bits"].cpu().numpy(), axis=-1)
+            for name, o in outs.items()}
+    compared = near = 0
+    for j in common:
+        gc, gp = slots["card"][j][0], slots["cpu"][j][0]
+        far = np.abs(logits[gp]) > 1e-4
+        check(bool((bits["card"][gc][far] == bits["cpu"][gp][far]).all()),
+              f"tester reference: voxel bits of proposal {j} differ away "
+              "from the iso level")
+        compared += int(far.sum())
+        near += int((~far).sum())
+    valid = cpu["gen"]["valid"].reshape(-1).numpy()
+    meshes = demo.make_generator(cfg, cpu_model).meshes_from_grids(
+        cpu["grids"].numpy(), valid=valid)
+    parsed = {k: v.numpy() for k, v in cpu["parsed"].items()}
+    refit = [fit_meshes_to_scan(
+        dict(parsed), meshes, cpu["gen"]["proposal_ids"].numpy(),
+        cpu["gen"]["valid"].numpy(), batch["point_clouds"],
+        gen_cfg["dump_threshold"], iterations=30, device=dev)[
+            "pred_corners_3d_upright_camera"]
+        for dev in (next(model.parameters()).device, "cpu")]
+    errs["refit_corners"] = float(np.abs(refit[0] - refit[1]).max())
+    moved = float(np.abs(refit[1] - parsed["pred_corners_3d_upright_camera"])
+                  .max())
+    per_box = np.abs(refit[0] - refit[1]).max(axis=(-2, -1))
+    check(errs["refit_corners"] <= 5e-2 and moved > 1e-3,
+          f"tester reference: refit corners differ by "
+          f"{errs['refit_corners']} (moved {moved})")
+    emit(phase="tester_reference", points=num_points,
+         selected=len(slots["cpu"]), swapped_near_ties=len(swapped),
+         slots_reordered=moved_slots, voxel_bits_compared=compared,
+         voxel_bits_near_iso=near, refit_moved=moved,
+         refit_boxes_off_by_1e3=int((per_box > 1e-3).sum()),
+         refit_boxes=int((np.abs(refit[1] - parsed[
+             "pred_corners_3d_upright_camera"]).max(axis=(-2, -1))
+                          > 1e-6).sum()), max_abs_err=errs)
+
+
+def phase_tester(dev, reps: int = 3):
+    """The test path (see the module docstring). Returns (launches of one
+    scene, the CBN kernel's rows at the two new shapes)."""
+    import numpy as np
+
+    import rfdnet_tpu_torch.models.occnet as occnet
+    from rfdnet_tpu_torch import cli, config
+    from rfdnet_tpu_torch.eval.tester import Tester
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = tester_config(tmp)
+        os.chdir(tmp)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            metrics = cli.main(["--config", cfg_path, "--mode", "test"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            os.chdir(cwd)
+        cfg = config.load_config(cfg_path, mode="test")
+        points = cfg["data"]["num_point"]
+        dumps = read_test_dumps(
+            os.path.join(tmp, "out", "test", "visualization"), points, 12)
+        model = cli.restore_weights(cfg, config.build_model(cfg, device=dev),
+                                    log=lambda m: None)
+        tester = Tester(cfg, model, log=lambda m: None)
+        loader = lambda: cli._build_loaders(cfg, ["test"])["test"]
+        # the scene time in turns, a scene in flight and not (no dumps)
+        runs = []
+        for overlap in (True, False, True, False):
+            got = tester.run(loader(), overlap=overlap)
+            runs.append(dict(
+                overlap=overlap,
+                wall_scene_ms=tester.run_ms / TESTER_SCENES,
+                stage_ms={k: spread([ms[k] for ms in tester.scene_ms])
+                          for k in tester.scene_ms[0]},
+                compute_metrics_ms=tester.metrics_ms,
+                refit_sizes=tester.refit_sizes,
+                metrics_max_diff=max(abs(got[k] - metrics[k])
+                                     for k in metrics)))
+        # the decodes of one scene, on the operands the path gives them
+        captured, launch = [], occnet.fused_cbn_decode
+
+        def capture(*ops, **kw):
+            captured.append(ops)
+            return launch(*ops, **kw)
+
+        occnet.fused_cbn_decode = capture
+        try:
+            tester.test_step(next(iter(loader())))
+        finally:
+            occnet.fused_cbn_decode = launch
+        shapes = [tuple(ops[0].shape[:2]) for ops in captured]
+        G = model.generate_limit
+        check(shapes == [(G, sum(cfg["data"]["points_subsample"])),
+                         (G, 16 ** 3),
+                         (G, cfg["generation"]["resolution_0"] ** 3)],
+              f"tester: decode shapes {shapes}")
+        cbn = {}
+        for name, ops in (("loss_t2048", captured[0]),
+                          ("voxels_t4096", captured[1])):
+            row = cbn[name] = cbn_row(ops, reps=reps)
+            row.pop("out")
+            check(row["max_abs_err"] <= row["tol"],
+                  f"tester: cbn_decode at {name}: kernel vs plain max err "
+                  f"{row['max_abs_err']} > {row['tol']}")
+        per_scene = {k: v // TESTER_SCENES for k, v in launches.items()}
+        emit(phase="tester", scenes=TESTER_SCENES, points=points,
+             cli_s=cli_s, launches=launches, launches_per_scene=per_scene,
+             dumps=dumps, metrics={
+                 k: v for k, v in metrics.items()
+                 if k.startswith(("mAP", "AR")) or "voxel IoU" in k},
+             runs=runs, cbn_decode=cbn)
+        tester_reference(cfg, model)
+    check(launches == {"fps": 5 * TESTER_SCENES,
+                       "cbn_decode": 3 * TESTER_SCENES},
+          f"kernel launches of the test path: {launches}")
+    check(all(np.isfinite(v) for v in metrics.values())
+          and "mAP @0.5" in metrics and "AR @0.5" in metrics
+          and any(k.endswith("voxel IoU") for k in metrics),
+          f"tester: metrics {sorted(metrics)}")
+    return per_scene, cbn
+
+
+def kernel_summary(fps_rows, cbn_rows, launches, test_cbn):
     """One entry per kernel. `launches` and the times are the main path's
     (to the grids): FPS summed over its five calls there, the CBN decoder
     in the test config's f32 mode; `launches_by_path` has every driven
-    path's count, and `detection_ms` the FPS calls of the detection path
-    (SA1-4 and vote_fps)."""
+    path's count (the test path's a scene), `detection_ms` the FPS calls
+    of the detection path (SA1-4 and vote_fps), and the CBN entry's
+    `test_shapes` the kernel at the test path's two other decodes."""
     f32 = cbn_rows["float32"]
     main = [r for r in fps_rows if r["name"] != "vote_fps"]
     detection = [r for r in fps_rows if r["name"] != "seed_fps"]
@@ -784,7 +1060,10 @@ def kernel_summary(fps_rows, cbn_rows, launches):
              launches_by_path=by_path("cbn_decode"),
              max_abs_err=f32["max_abs_err"],
              ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
-             bound_by=f32["bound_by"], library_ms=f32["library_ms"]),
+             bound_by=f32["bound_by"], library_ms=f32["library_ms"],
+             test_shapes={name: {k: row[k] for k in (
+                 "nb", "t", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")} for name, row in test_cbn.items()}),
     ]
 
 
@@ -814,9 +1093,11 @@ def main() -> int:
     phase_reference(model, cfg)
     launches["demo"] = phase_demo()
     launches["detection"] = phase_detection(dev)
+    launches["test"], test_cbn = phase_tester(dev)
 
     print(json.dumps({"kernels": kernel_summary(fps_rows, cbn_rows,
-                                                launches)}), flush=True)
+                                                launches, test_cbn)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,12 @@
-"""CLI entry point: `python -m rfdnet_tpu_torch --config <yaml> --mode demo
---demo_path <scan> [--device cpu]`.
+"""CLI entry point: `python -m rfdnet_tpu_torch --config <yaml> --mode
+{test,demo} [--demo_path <scan>] [--device cpu]`.
 
 Counterpart of `rfdnet_tpu/cli.py`: one argparse surface, config load,
 seeding, then mode dispatch. It runs on the current CUDA card unless
-`--device` names another device. `--mode train` and `--mode test` are not
-ported yet and raise.
+`--device` names another device. `--mode test` evaluates the val split
+(`Tester`: mAP/AR per IoU threshold and per-class voxel IoU, printed as a
+table; the per-scene dumps under `out/test/visualization` with
+`generation.dump_results`). `--mode train` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import os
 import numpy as np
 import torch
 
-from .config import load_config
+from . import resolve_device
+from .config import build_model, load_config
 from .weights import init_seeded, load_npz
 
 
@@ -31,6 +34,83 @@ def restore_weights(cfg: dict, model, log=print):
         else:
             log(f"Warning: weight path {w} not found.")
     return model
+
+
+def _build_loaders(cfg: dict, modes):
+    """{mode: DataLoader} over `<data.split>/scannetv2_<split>.json`, the
+    dataset as the mode's section and `data` describe it."""
+    from .data.scannet import DataLoader, ScanNetDataset
+
+    d = cfg["data"]
+    loaders = {}
+    for mode in modes:
+        split_mode = {"train": "train", "val": "val", "test": "val"}[mode]
+        ds = ScanNetDataset(
+            os.path.join(d["split"], f"scannetv2_{split_mode}.json"),
+            mode=mode,
+            phase=cfg[mode]["phase"],
+            num_points=d["num_point"],
+            use_color_detection=d["use_color_detection"],
+            use_color_completion=d["use_color_completion"],
+            use_height=not d["no_height"],
+            points_subsample=d["points_subsample"],
+            points_unpackbits=d["points_unpackbits"],
+            shapenet_path=d.get("shapenet_path"),
+            seed=cfg.get("seed", 10),
+            augment=d.get("augment"),
+            cache_scans=int(d.get("cache_scans", 0)),
+            cache_shapenet=int(d.get("cache_shapenet", 256)),
+        )
+        loaders[mode] = DataLoader(
+            ds,
+            batch_size=cfg[mode].get("batch_size", 1),
+            shuffle=mode == "train",
+            num_workers=cfg["device"].get("num_workers", 8) or 1,
+            seed=cfg.get("seed", 10),
+        )
+    return loaders
+
+
+def format_ap_table(metrics: dict, thresholds) -> list:
+    """Per-class AP/AR table for each threshold, then the voxel IoUs."""
+    lines = []
+    for t in thresholds:
+        lines.append(f"----- AP @ IoU {t} -----")
+        lines.append(f"{'class':<16}{'AP':>10}{'Recall':>10}")
+        for k in sorted(metrics):
+            if k.endswith(f"Average Precision @{t}"):
+                cls = k[: -len(f" Average Precision @{t}")]
+                rec = metrics.get(f"{cls} Recall @{t}", 0.0)
+                lines.append(f"{cls:<16}{metrics[k]:>10.4f}{rec:>10.4f}")
+        for agg in ("mAP", "AR"):
+            key = f"{agg} @{t}"
+            if key in metrics:
+                lines.append(f"{agg:<16}{metrics[key]:>10.4f}")
+    for k, v in sorted(metrics.items()):
+        if "voxel IoU" in k:
+            lines.append(f"{k}: {v:.4f}")
+    return lines
+
+
+def run_test(cfg: dict, device=None, log=print, overlap: bool = True):
+    """Evaluate the val split with the configured weights on `device` (the
+    current CUDA card when None); print the AP table. Returns
+    (metrics, tester)."""
+    from .eval.tester import Tester
+
+    dev = resolve_device(device)
+    loaders = _build_loaders(cfg, ["test"])
+    model = restore_weights(cfg, build_model(cfg, device=dev), log=log)
+    tester = Tester(cfg, model, log=log)
+    thresholds = cfg["test"].get("ap_iou_thresholds", [0.5])
+    dump_dir = None
+    if cfg["generation"].get("dump_results"):
+        dump_dir = os.path.join("out/test", cfg["log"]["vis_path"])
+    metrics = tester.run(loaders["test"], ap_iou_thresholds=thresholds,
+                         dump_dir=dump_dir, overlap=overlap)
+    for line in format_ap_table(metrics, thresholds):
+        log(line)
+    return metrics, tester
 
 
 def parse_args(argv=None):
@@ -59,9 +139,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--mode train is not ported (ROADMAP.md, 'Training')")
     if args.mode == "test":
-        raise NotImplementedError(
-            "--mode test is not ported (ROADMAP.md, 'The Tester with GT "
-            "fields')")
+        return run_test(cfg, device=args.device)[0]
     from .demo import run as run_demo  # demo imports this module
 
     return run_demo(cfg, args.demo_path, device=args.device)

@@ -1,7 +1,8 @@
 """Experiment configuration: the YAML files of `configs/` merged over the
 defaults into a plain dict, the dataset constants, and the model factory.
 
-Counterparts: `rfdnet_tpu/config/scannet.py:57-76` (dataset metadata) and
+Counterparts: `rfdnet_tpu/config/scannet.py` (dataset metadata: mean
+sizes, class names and ids, the heading codec) and
 `rfdnet_tpu/config/config.py` (defaults, eval settings, `build_model`).
 The machine with the card has no YAML package to count on, so `parse_yaml`
 reads the subset of YAML that the files of `configs/` use. `TEST_CONFIG`
@@ -35,6 +36,26 @@ MEAN_SIZE_ARR = np.array([
     [0.1643819819032661, 0.6067032028821382, 0.4759424743521153],
     [0.5161200946070579, 0.8530538303885332, 0.4392502425548773],
 ], dtype=np.float64)
+
+# the ShapeNet class index of each detection class, and their names
+CLASS_IDS = (1, 7, 8, 13, 20, 31, 34, 43)
+CLASS2TYPE = dict(enumerate((
+    "table", "chair", "bookshelf", "sofa", "trash_bin", "cabinet", "display",
+    "bathtub")))
+TYPE2CLASS = {name: c for c, name in CLASS2TYPE.items()}
+SHAPENETID2CLASS = {cid: c for c, cid in enumerate(CLASS_IDS)}
+
+
+def angle2class(angle):
+    """Continuous angle(s) -> (heading bin, residual), as
+    `ScannetConfig.angle2class`."""
+    angle = angle % (2 * np.pi)
+    angle_per_class = 2 * np.pi / float(NUM_HEADING_BIN)
+    shifted = (angle + angle_per_class / 2) % (2 * np.pi)
+    class_id = np.int16(shifted / angle_per_class)
+    residual = shifted - (class_id * angle_per_class + angle_per_class / 2)
+    return class_id, residual
+
 
 # the keys of configs/iscnet_test.yaml (merged over rfdnet_tpu's defaults)
 # that the test-time generation path reads
@@ -128,7 +149,8 @@ DEFAULTS = {
     "mode": "train",
 }
 
-_EVAL_DEFAULTS = {"nms_iou": 0.25, "cls_nms": True, "remove_empty_box": False}
+_EVAL_DEFAULTS = {"nms_iou": 0.25, "cls_nms": True, "remove_empty_box": False,
+                  "per_class_proposal": True, "conf_thresh": 0.05}
 
 # ------------------------------------------------------------------ YAML
 # PyYAML's (YAML 1.1) readings of plain scalars
@@ -293,15 +315,16 @@ def _mode(cfg: dict, mode) -> str:
 
 
 def eval_config(cfg: dict = TEST_CONFIG, mode: str | None = None) -> dict:
-    """NMS and empty-box settings of the mode's section over the defaults
-    (`config/config.py:121-135`). `mode`: `cfg["mode"]` when None, "test"
-    for a dict without one."""
+    """NMS, empty-box and AP-assembly settings of the mode's section over
+    the defaults (`config/config.py:121-135`). `mode`: `cfg["mode"]` when
+    None, "test" for a dict without one."""
     m = cfg.get(_mode(cfg, mode), {})
     out = dict(_EVAL_DEFAULTS)
-    if "nms_iou" in m:
-        out["nms_iou"] = m["nms_iou"]
-    if "use_cls_nms" in m:
-        out["cls_nms"] = m["use_cls_nms"]
+    for src, dst in (("nms_iou", "nms_iou"), ("use_cls_nms", "cls_nms"),
+                     ("per_class_proposal", "per_class_proposal"),
+                     ("conf_thresh", "conf_thresh")):
+        if src in m:
+            out[dst] = m[src]
     if "faster_eval" in m:
         out["remove_empty_box"] = not m["faster_eval"]
     return out
@@ -337,5 +360,6 @@ def build_model(cfg: dict = TEST_CONFIG, generate_limit: int = 64,
         use_cls_for_completion=d["use_cls_for_completion"],
         generate_limit=generate_limit,
         decoder_bf16=bool(d.get("decoder_bf16")),
+        threshold=d["threshold"],
     )
     return model.to(dev).eval().requires_grad_(False)

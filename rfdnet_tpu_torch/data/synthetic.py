@@ -1,0 +1,242 @@
+"""Synthetic ScanNet-format scenes, in memory and on disk.
+
+`synthetic_scene_batch` is the port's own copy of
+`rfdnet_tpu/data/synthetic.py`: point clouds with the height feature,
+MAX_NUM_OBJ-padded box labels, per-point votes and instance labels, and
+per-object occupancy point sets and 16^3 voxels. `write_scannet_scenes`
+writes such scenes in the layout that `data.scannet.ScanNetDataset`
+reads, so that the test path runs from files without the real datasets.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+
+import numpy as np
+
+from ..config import CLASS_IDS, MEAN_SIZE_ARR, NUM_HEADING_BIN
+from .binvox import Voxels, write_binvox
+
+MAX_NUM_OBJ = 64
+
+
+def synthetic_scene_batch(
+    rng: np.random.RandomState,
+    batch_size: int = 2,
+    num_points: int = 4096,
+    num_objects: int = 4,
+    num_obj_points: int = 256,
+    num_heading_bin: int = 12,
+    num_class: int = 8,
+    mean_size_arr: np.ndarray | None = None,
+    scene_extent: float = 4.0,
+) -> dict:
+    if mean_size_arr is None:
+        mean_size_arr = np.full((num_class, 3), 0.8, dtype=np.float32)
+
+    B = batch_size
+    pc = np.zeros((B, num_points, 4), np.float32)
+    center_label = np.zeros((B, MAX_NUM_OBJ, 3), np.float32)
+    heading_class_label = np.zeros((B, MAX_NUM_OBJ), np.int32)
+    heading_residual_label = np.zeros((B, MAX_NUM_OBJ), np.float32)
+    size_class_label = np.zeros((B, MAX_NUM_OBJ), np.int32)
+    size_residual_label = np.zeros((B, MAX_NUM_OBJ, 3), np.float32)
+    sem_cls_label = np.zeros((B, MAX_NUM_OBJ), np.int32)
+    box_label_mask = np.zeros((B, MAX_NUM_OBJ), np.float32)
+    vote_label = np.zeros((B, num_points, 9), np.float32)
+    vote_label_mask = np.zeros((B, num_points), np.int32)
+    point_instance_labels = np.zeros((B, num_points), np.float32)
+    object_instance_labels = np.zeros((B, MAX_NUM_OBJ), np.float32)
+    object_points = np.zeros((B, MAX_NUM_OBJ, num_obj_points, 3), np.float32)
+    object_points_occ = np.zeros((B, MAX_NUM_OBJ, num_obj_points), np.float32)
+    # 16^3 canonical voxelization consistent with the occupancy labels
+    # below (inside points uniform in [-0.45, 0.45]^3): a cell is occupied
+    # iff its center lies in that box
+    ax = -0.5 + 1.0 / 32 + np.arange(16) / 16.0
+    gx, gy, gz = np.meshgrid(ax, ax, ax, indexing="ij")
+    box_voxels = (
+        (np.abs(gx) <= 0.45) & (np.abs(gy) <= 0.45) & (np.abs(gz) <= 0.45)
+    ).astype(np.float32)
+    object_voxels = np.zeros((B, MAX_NUM_OBJ, 16, 16, 16), np.float32)
+
+    for b in range(B):
+        n_bg = num_points - num_objects * (num_points // (num_objects + 1))
+        per_obj = num_points // (num_objects + 1)
+        # floor points
+        pts = []
+        floor = rng.uniform(-scene_extent, scene_extent, size=(n_bg, 3)).astype(
+            np.float32)
+        floor[:, 2] = 0.0
+        pts.append(floor)
+        for o in range(num_objects):
+            cls = rng.randint(0, num_class)
+            size = mean_size_arr[cls] * rng.uniform(0.7, 1.3, size=3)
+            center = rng.uniform(-scene_extent * 0.7, scene_extent * 0.7, size=3)
+            center[2] = size[2] / 2 + rng.uniform(0, 0.3)
+            heading = rng.uniform(0, 2 * np.pi)
+            # surface-ish points of the box (in canonical frame then rotated)
+            local = rng.uniform(-0.5, 0.5, size=(per_obj, 3)) * size
+            face = rng.randint(0, 3, size=per_obj)
+            sgn = rng.choice([-0.5, 0.5], size=per_obj)
+            local[np.arange(per_obj), face] = sgn * size[face]
+            c, s = np.cos(heading), np.sin(heading)
+            R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+            world = local @ R.T + center
+            pts.append(world.astype(np.float32))
+
+            start = n_bg + o * per_obj
+            idx = slice(start, start + per_obj)
+            center_label[b, o] = center
+            hc, hr = _angle2class(heading, num_heading_bin)
+            heading_class_label[b, o] = hc
+            heading_residual_label[b, o] = hr
+            size_class_label[b, o] = cls
+            size_residual_label[b, o] = size - mean_size_arr[cls]
+            sem_cls_label[b, o] = cls
+            box_label_mask[b, o] = 1.0
+            vote = center - world  # (per_obj, 3)
+            vote_label[b, idx] = np.tile(vote, (1, 3))
+            vote_label_mask[b, idx] = 1
+            point_instance_labels[b, idx] = o + 1
+            object_instance_labels[b, o] = o + 1
+
+            # occupancy supervision in the padded unit cube (canonical frame)
+            n_in = num_obj_points // 2
+            p_in = rng.uniform(-0.45, 0.45, size=(n_in, 3)).astype(np.float32)
+            p_out = rng.uniform(-0.55, 0.55, size=(num_obj_points - n_in, 3))
+            object_points[b, o, :n_in] = p_in
+            object_points[b, o, n_in:] = p_out
+            object_points_occ[b, o, :n_in] = 1.0
+            # outside points in [-0.55, 0.55]^3 may fall inside the box:
+            # relabel them so supervision is consistent
+            out_in_box = np.all(
+                np.abs(object_points[b, o, n_in:]) <= 0.45, axis=-1)
+            object_points_occ[b, o, n_in:] = out_in_box.astype(np.float32)
+            object_voxels[b, o] = box_voxels
+
+        all_pts = np.concatenate(pts, axis=0)[:num_points]
+        pc[b, :, :3] = all_pts
+        floor_height = np.percentile(all_pts[:, 2], 0.99)
+        pc[b, :, 3] = all_pts[:, 2] - floor_height
+
+    return {
+        "point_clouds": pc,
+        "center_label": center_label,
+        "heading_class_label": heading_class_label,
+        "heading_residual_label": heading_residual_label,
+        "size_class_label": size_class_label,
+        "size_residual_label": size_residual_label,
+        "sem_cls_label": sem_cls_label,
+        "box_label_mask": box_label_mask,
+        "vote_label": vote_label,
+        "vote_label_mask": vote_label_mask,
+        "point_instance_labels": point_instance_labels,
+        "object_instance_labels": object_instance_labels,
+        "object_points": object_points,
+        "object_points_occ": object_points_occ,
+        "object_voxels": object_voxels,
+    }
+
+
+def _angle2class(angle, num_heading_bin):
+    angle = angle % (2 * np.pi)
+    angle_per_class = 2 * np.pi / num_heading_bin
+    shifted = (angle + angle_per_class / 2) % (2 * np.pi)
+    class_id = int(shifted / angle_per_class)
+    residual = shifted - (class_id * angle_per_class + angle_per_class / 2)
+    return class_id, residual
+
+
+def _object_points(rng, n: int):
+    """An occupancy point set of the synthetic box object in the padded
+    unit cube: n points inside [-0.45, 0.45]^3 (occupied), then n in the
+    shell out to 0.55 (free), one random axis pushed into the shell."""
+    inside = rng.uniform(-0.45, 0.45, size=(n, 3))
+    shell = rng.uniform(-0.55, 0.55, size=(n, 3))
+    axis = rng.randint(0, 3, size=n)
+    shell[np.arange(n), axis] = (rng.choice([-1.0, 1.0], size=n)
+                                 * rng.uniform(0.45, 0.55, size=n))
+    points = np.concatenate([shell, inside]).astype(np.float32)
+    occ = np.concatenate([np.zeros(n, bool), np.ones(n, bool)])
+    return points, occ
+
+
+def write_scannet_scenes(root: str, num_scenes: int, seed: int = 0,
+                         num_points: int = 4096, num_objects: int = 4,
+                         points_subsample=(1024, 1024)) -> dict:
+    """Write `num_scenes` scenes of `synthetic_scene_batch` (one RandomState
+    from `seed`, class mean sizes of the dataset) under `root`, in the
+    layout `ScanNetDataset` reads:
+
+        scenes/sceneNNNN_00/full_scan.npz   mesh_vertices (N, 3),
+                                            point_votes (N, 10),
+                                            instance_labels (N,)
+        scenes/sceneNNNN_00/bbox.pkl        one dict a box: box3D [center,
+                                            size, heading], cls_id (ShapeNet
+                                            class index), shapenet_catid,
+                                            shapenet_id, instance_id
+        splits/scannetv2_val.json           [{scan, bbox}], paths relative
+                                            to the split's directory
+        shapenet/point/<catid>/<sid>.npz    points (M, 3), packed
+                                            occupancies
+        shapenet/voxel/16/<catid>/<sid>.binvox
+
+    Each object's occupancy file holds as many free as occupied points,
+    enough for the test mode's first `points_subsample` rows of each.
+    Returns {"split": the splits directory, "shapenet_path": ...}."""
+    rng = np.random.RandomState(seed)
+    split_dir = os.path.join(root, "splits")
+    shapenet = os.path.join(root, "shapenet")
+    os.makedirs(split_dir, exist_ok=True)
+    n_occ = max(points_subsample)
+    entries = []
+    for i in range(num_scenes):
+        name = f"scene{i:04d}_00"
+        scene_dir = os.path.join(root, "scenes", name)
+        os.makedirs(scene_dir, exist_ok=True)
+        b = synthetic_scene_batch(
+            rng, batch_size=1, num_points=num_points, num_objects=num_objects,
+            num_obj_points=16, num_heading_bin=NUM_HEADING_BIN,
+            mean_size_arr=MEAN_SIZE_ARR)
+        np.savez(os.path.join(scene_dir, "full_scan.npz"),
+                 mesh_vertices=b["point_clouds"][0, :, :3],
+                 point_votes=np.concatenate(
+                     [b["vote_label_mask"][0, :, None].astype(np.float32),
+                      b["vote_label"][0]], axis=1),
+                 instance_labels=b["point_instance_labels"][0])
+        angle_per_class = 2 * np.pi / NUM_HEADING_BIN
+        boxes = []
+        for o in range(num_objects):
+            cls = int(b["sem_cls_label"][0, o])
+            catid, sid = f"{CLASS_IDS[cls]:08d}", f"{name}_{o}"
+            heading = (b["heading_class_label"][0, o] * angle_per_class
+                       + b["heading_residual_label"][0, o])
+            size = MEAN_SIZE_ARR[cls] + b["size_residual_label"][0, o]
+            boxes.append({
+                "box3D": np.concatenate(
+                    [b["center_label"][0, o], size, [heading]]),
+                "cls_id": CLASS_IDS[cls], "shapenet_catid": catid,
+                "shapenet_id": sid,
+                "instance_id": int(b["object_instance_labels"][0, o]),
+            })
+            points, occ = _object_points(rng, n_occ)
+            point_dir = os.path.join(shapenet, "point", catid)
+            voxel_dir = os.path.join(shapenet, "voxel", "16", catid)
+            os.makedirs(point_dir, exist_ok=True)
+            os.makedirs(voxel_dir, exist_ok=True)
+            np.savez(os.path.join(point_dir, sid + ".npz"), points=points,
+                     occupancies=np.packbits(occ))
+            with open(os.path.join(voxel_dir, sid + ".binvox"), "wb") as f:
+                write_binvox(f, Voxels(b["object_voxels"][0, o] > 0.5,
+                                       (16,) * 3, [-0.5] * 3, 1.0))
+        with open(os.path.join(scene_dir, "bbox.pkl"), "wb") as f:
+            pickle.dump(boxes, f)
+        entries.append({
+            "scan": os.path.join("..", "scenes", name, "full_scan.npz"),
+            "bbox": os.path.join("..", "scenes", name, "bbox.pkl"),
+        })
+    with open(os.path.join(split_dir, "scannetv2_val.json"), "w") as f:
+        json.dump(entries, f)
+    return {"split": split_dir, "shapenet_path": shapenet}

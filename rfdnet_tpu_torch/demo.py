@@ -6,8 +6,8 @@ detection -> NMS -> skip propagation -> the dense occupancy grid of every
 selected proposal -> marching cubes on the host, and dump
 `proposal_<j>_mesh.ply`, `000000_pc.ply` and the NMS-filtered bbox npz.
 `generate_grids` stops at the logit grids on the device (what a tester
-reads before extraction). Not ported yet: the mesh-to-scan box refit
-(`post_processing`) and the `scene.html` / `pred.png` renderings.
+reads before extraction); `post_processing` refits the boxes to the scan
+(`eval.refit`). Not ported yet: the `scene.html` / `pred.png` renderings.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 
 from . import resolve_device
 from .config import build_model, eval_config
-from .eval.refit import _box_params_from_corners
+from .eval.refit import _box_params_from_corners, fit_meshes_to_scan
 from .eval.tester import place_mesh_in_box
 from .meshing.generator import Generator3D
 from .meshing.mesh import TriMesh, write_ply
@@ -73,9 +73,7 @@ def generate_grids(cfg: dict, model, point_clouds: torch.Tensor, marks=None):
 
 
 def make_generator(cfg: dict, model) -> Generator3D:
-    """The mesh generator that `cfg` describes over `model`'s decoder. It
-    owns the pinned host buffer the grids are copied into: keep one for a
-    run of scenes."""
+    """The mesh generator that `cfg` describes over `model`'s decoder."""
     gen_cfg = cfg["generation"]
     _check_generation(gen_cfg)
     return Generator3D(
@@ -104,16 +102,15 @@ def generate(cfg: dict, model, data: dict, post_processing: bool = False,
     """Detection + completion + mesh extraction for one scene. Returns
     (parsed, gen, meshes): numpy dicts (gen's `features` and `cls_codes`
     stay tensors on the device) and one `TriMesh` per slot, empty for an
-    invalid slot.
+    invalid slot. With `post_processing` the corners in parsed are those
+    of the boxes refit to the scan (`eval.refit.fit_meshes_to_scan`, on
+    the device of the scan).
 
-    `generator`: from `make_generator`, to reuse its host buffer over
-    scenes. `marks`: see `ISCNet.generate`. `host_ms`: a dict that receives
-    the host-clock milliseconds of the copy to the host (`d2h`: grids,
-    parsed and gen) and of the extraction (`mesh`); asking for them makes
-    the host wait for the device before the copy starts."""
-    if post_processing:
-        raise NotImplementedError(
-            "post_processing needs the box refit (ROADMAP.md, 'Refit')")
+    `generator`: from `make_generator`, kept over scenes. `marks`: see
+    `ISCNet.generate`. `host_ms`: a dict that receives the host-clock
+    milliseconds of the copy to the host (`d2h`: grids, parsed and gen)
+    and of the extraction (`mesh`); asking for them makes the host wait for
+    the device before the copy starts."""
     if model.phase != "completion":
         raise ValueError(f"a model in the {model.phase} phase completes no "
                          "shapes: call generate_grids for its detections")
@@ -141,6 +138,11 @@ def generate(cfg: dict, model, data: dict, post_processing: bool = False,
     if host_ms is not None:
         host_ms["d2h"] = (t1 - t0) * 1e3
         host_ms["mesh"] = (time.perf_counter() - t1) * 1e3
+    if post_processing:
+        parsed = fit_meshes_to_scan(
+            parsed, meshes, gen["proposal_ids"], gen["valid"],
+            pc.cpu().numpy(), cfg["generation"]["dump_threshold"],
+            device=pc.device)
     return parsed, gen, meshes
 
 

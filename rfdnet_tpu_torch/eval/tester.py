@@ -1,15 +1,66 @@
-"""Placement of generated meshes in the scene.
+"""Test-time evaluation: per-scene generation with GT fields, host meshes, the
+box refit, voxel IoU and AP, and the per-scene dumps.
 
-Counterpart of `rfdnet_tpu/eval/tester.py`, of which only
-`place_mesh_in_box` is ported; the `Tester` class (GT fields, AP) is not
-yet (ROADMAP.md, 'The Tester with GT fields').
+Counterpart of `rfdnet_tpu/eval/tester.py`. For each val scene
+`dispatch_step` queues the device work on the current stream (detection,
+NMS, completion conditioning with the supervised skip propagation, the eval
+completion loss, the 16^3 shape voxels as bits and, when meshes are
+generated, every slot's dense grid) and the copies of its outputs into
+host buffers of their own. `consume_step` waits for those copies, then
+extracts the meshes on the host, refits the boxes to the scan on the
+device (`fit_to_scan`: the completion phase with meshes), and assembles the
+(class, box, score) tuples of the AP and the voxel IoU of each valid slot.
+
+`run` keeps one scene in flight: scene i's `consume_step` runs in a worker
+thread, on a CUDA stream of its own, while the main thread queues scene
+i+1's device work (the marching cubes library releases the interpreter
+lock). `run(..., overlap=False)` runs the scenes one after the other.
+
+The grid decode is always the CUDA kernel on the card; `data.decoder_bf16`
+picks its operand type. `generation.decoder_impl`, the JAX package's
+choice between its Pallas kernel and XLA, has no counterpart and is
+ignored. The grids cross to the host as dense float32: the f16 and sparse
+transfers of the JAX Tester exist for the TPU's host link and are not
+ported. Not ported either: the mesh mAP (`evaluate_mesh_mAP`, which
+raises) and the `scene.html` dump.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import contextlib
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 
-from .refit import TRANSFORM_SHAPENET, _box_params_from_corners
+import numpy as np
+import torch
+
+from ..config import CLASS2TYPE, eval_config
+from ..meshing.generator import copies_done, host_copy
+from .ap_helper import (
+    APCalculator,
+    assembly_gt_map_cls,
+    assembly_pred_map_cls,
+    parse_groundtruths,
+)
+from .box_util import flip_axis_to_depth
+from .refit import TRANSFORM_SHAPENET, _box_params_from_corners, fit_meshes_to_scan
+
+# the batch fields `ISCNet.generate` reads; the rest stays on the host
+_DEVICE_KEYS = ("point_clouds", "center_label", "box_label_mask",
+                "sem_cls_label", "point_instance_labels",
+                "object_instance_labels", "object_points", "object_points_occ")
+# outputs the host never reads: they stay on the device
+_DEVICE_ONLY = ("features", "cls_codes")
+
+
+def compute_iou(occ1: np.ndarray, occ2: np.ndarray) -> np.ndarray:
+    """Batched boolean-set IoU over the flattened trailing dims."""
+    occ1 = np.asarray(occ1).reshape(occ1.shape[0], -1) >= 0.5
+    occ2 = np.asarray(occ2).reshape(occ2.shape[0], -1) >= 0.5
+    union = (occ1 | occ2).sum(axis=-1)
+    inter = (occ1 & occ2).sum(axis=-1)
+    return inter / np.maximum(union, 1)
 
 
 def place_mesh_in_box(mesh, box_corners_cam: np.ndarray):
@@ -29,3 +80,274 @@ def place_mesh_in_box(mesh, box_corners_cam: np.ndarray):
     R = np.array([[cs, sn, 0], [-sn, cs, 0], [0, 0, 1]])
     out.vertices = v @ R + centroid
     return out
+
+
+def _ms(t0: float) -> float:
+    return (time.perf_counter() - t0) * 1e3
+
+
+class Tester:
+    def __init__(self, cfg: dict, model, log=print):
+        """cfg: `config.load_config(..., mode="test")`; model: the port's
+        `ISCNet` with its weights, on the device the Tester runs on."""
+        from ..demo import make_generator
+
+        self.cfg = cfg
+        self.model = model
+        self.log = log
+        self.device = next(model.parameters()).device
+        mode = cfg["mode"]
+        gen_cfg = cfg["generation"]
+        self.generate_mesh = gen_cfg["generate_mesh"]
+        if cfg.get(mode, {}).get("evaluate_mesh_mAP") and self.generate_mesh:
+            raise NotImplementedError(
+                "evaluate_mesh_mAP needs eval/mesh_iou.py, not ported "
+                "(ROADMAP.md, 'Left-overs': mesh mAP)")
+        self.eval_config = eval_config(cfg)
+        self.dump_threshold = gen_cfg["dump_threshold"]
+        self.fit_to_scan = (cfg.get(mode, {}).get("phase", "") == "completion"
+                            and self.generate_mesh)
+        self.generator = (make_generator(cfg, model) if self.generate_mesh
+                          else None)
+        self._grid_res = gen_cfg["resolution_0"] if self.generate_mesh else None
+        # the worker's stream: its refit runs beside the next scene's work
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._said_no_html = False
+        # per scene, the milliseconds of each stage (see `consume_step`)
+        self.scene_ms: list[dict] = []
+        self.refit_sizes: list[dict] = []
+        self.run_ms = self.metrics_ms = None
+
+    # ---------------------------------------------------------------- step
+    def dispatch_step(self, batch: dict) -> dict:
+        """Queue one scene's device work and the copies of its outputs to
+        the host; return at once (with a card) with what `consume_step`
+        needs."""
+        t0 = time.perf_counter()
+        dev = self.device
+        data = {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
+                for k in _DEVICE_KEYS if k in batch}
+        events = None
+        if dev.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        ec = self.eval_config
+        out = self.model.generate(
+            data, nms_iou=ec["nms_iou"], use_cls_nms=ec["cls_nms"],
+            dump_threshold=self.dump_threshold,
+            remove_empty_box=ec["remove_empty_box"],
+            decode_grid_res=self._grid_res)
+        if events is not None:
+            events[1].record()
+        host = {"parsed": {k: host_copy(v) for k, v in out["parsed"].items()}}
+        if "gen" in out:
+            host["gen"] = {k: host_copy(v) for k, v in out["gen"].items()
+                           if k not in _DEVICE_ONLY}
+        for k in ("completion_loss", "shape_voxels_bits", "grids"):
+            if k in out:
+                host[k] = host_copy(out[k])
+        return {"batch": batch, "host": host, "done": copies_done(dev),
+                "events": events, "dispatch_ms": _ms(t0)}
+
+    def test_step(self, batch: dict) -> dict:
+        return self.consume_step(self.dispatch_step(batch))
+
+    def consume_step(self, pending: dict) -> dict:
+        """The host half of a scene (and the refit, on the device). Its
+        stage times land in `scene_ms`: `dispatch` (host, queueing the
+        scene), `generate` (device, from the scene's first to its last
+        queued operation, as CUDA events), `d2h` (waiting for the scene's
+        device work and the copies of its outputs), `mesh`, `refit`, `ap`
+        (voxel IoU and AP assembly); `run` adds `dump`."""
+        t0 = time.perf_counter()
+        if pending["done"] is not None:
+            pending["done"].synchronize()
+        ms = {"dispatch": pending["dispatch_ms"], "d2h": _ms(t0)}
+        if pending["events"] is not None:
+            ms["generate"] = pending["events"][0].elapsed_time(
+                pending["events"][1])
+        host, batch = pending["host"], pending["batch"]
+        parsed = {k: v.numpy() for k, v in host["parsed"].items()}
+        gen = {k: v.numpy() for k, v in host.get("gen", {}).items()}
+        point_clouds = np.asarray(batch["point_clouds"])
+
+        losses = {"total": 0.0}
+        if "completion_loss" in host:
+            losses["completion loss"] = float(host["completion_loss"])
+            losses["mask loss"] = float(gen.get("mask_loss", 0.0))
+            losses["total"] = losses["completion loss"]
+
+        meshes = None
+        t0 = time.perf_counter()
+        if gen and "grids" in host:
+            meshes = self.generator.meshes_from_grids(
+                host["grids"].numpy(), valid=gen["valid"].reshape(-1))
+        ms["mesh"] = _ms(t0)
+        t0 = time.perf_counter()
+        refit_sizes = {}
+        if gen and meshes is not None and self.fit_to_scan:
+            parsed = fit_meshes_to_scan(
+                parsed, meshes, gen["proposal_ids"], gen["valid"],
+                point_clouds, self.dump_threshold, device=self.device,
+                stats=refit_sizes)
+        ms["refit"] = _ms(t0)
+
+        t0 = time.perf_counter()
+        iou_stats = None
+        if gen and "shape_voxels_bits" in host and "object_voxels" in batch:
+            B, G, _ = gen["proposal_ids"].shape
+            voxels = np.unpackbits(host["shape_voxels_bits"].numpy(),
+                                   axis=-1).reshape(B * G, 16, 16, 16)
+            gt_ids = gen["proposal_ids"][..., 1].reshape(-1)
+            gt_vox = np.asarray(batch["object_voxels"])[
+                np.repeat(np.arange(B), G), gt_ids]
+            valid = gen["valid"].reshape(-1).astype(bool)
+            iou_stats = {
+                "cls": gen["proposal_ids"][..., 2].reshape(-1)[valid],
+                "iou": compute_iou(voxels[valid], gt_vox[valid]),
+            }
+        ec = self.eval_config
+        batch_pred = assembly_pred_map_cls(
+            parsed, conf_thresh=ec["conf_thresh"],
+            per_class_proposal=ec["per_class_proposal"])
+        batch_gt = assembly_gt_map_cls(parse_groundtruths(batch))
+        ms["ap"] = _ms(t0)
+        return {
+            "losses": losses,
+            "batch_pred_map_cls": batch_pred,
+            "batch_gt_map_cls": batch_gt,
+            "iou_stats": iou_stats,
+            "meshes": meshes,
+            "parsed": parsed,
+            "gen": gen,
+            "ms": ms,
+            "refit_sizes": refit_sizes,
+        }
+
+    # -------------------------------------------------------------- dumps
+    def visualize_step(self, out: dict, batch: dict, scene_dir: str):
+        """Per-scene dumps: the scan (`000000_pc.ply`), the confident NMS
+        boxes (`000000_pred_confident_nms_bbox.ply`), each valid slot's
+        mesh placed in its box (`proposal_<j>_mesh.ply`), and the pred/gt
+        (class, box, score) lists (`pred_map_cls.txt`, `gt_map_cls.txt`)."""
+        from ..meshing.mesh import write_ply
+        from ..utils.visualization import write_oriented_bbox_ply
+
+        os.makedirs(scene_dir, exist_ok=True)
+        pc = np.asarray(batch["point_clouds"])[0, :, :3]
+        write_ply(os.path.join(scene_dir, "000000_pc.ply"), pc,
+                  np.zeros((0, 3), np.int32))
+
+        parsed, gen = out["parsed"], out.get("gen") or {}
+        keep = np.nonzero(
+            parsed["pred_mask"][0]
+            & (parsed["obj_prob"][0] > self.eval_config["conf_thresh"]))[0]
+        if len(keep):
+            write_oriented_bbox_ply(
+                os.path.join(scene_dir, "000000_pred_confident_nms_bbox.ply"),
+                flip_axis_to_depth(
+                    parsed["pred_corners_3d_upright_camera"][0, keep]))
+        if gen and out["meshes"] is not None:
+            for g in range(gen["proposal_ids"].shape[1]):
+                if not gen["valid"][0, g]:
+                    continue
+                j = int(gen["proposal_ids"][0, g, 0])
+                mesh = out["meshes"][g]
+                if len(mesh.vertices):
+                    place_mesh_in_box(
+                        mesh, parsed["pred_corners_3d_upright_camera"][0, j]
+                    ).export(os.path.join(scene_dir,
+                                          f"proposal_{j}_mesh.ply"))
+        if not self._said_no_html:
+            self.log("[tester] scene.html is not ported (ROADMAP.md, "
+                     "'Left-overs'): not written")
+            self._said_no_html = True
+
+        with open(os.path.join(scene_dir, "pred_map_cls.txt"), "w") as f:
+            for item in out["batch_pred_map_cls"][0]:
+                f.write(f"{item[0]} {item[-1]} "
+                        + " ".join(map(str, np.asarray(item[1]).ravel()))
+                        + "\n")
+        with open(os.path.join(scene_dir, "gt_map_cls.txt"), "w") as f:
+            for item in out["batch_gt_map_cls"][0]:
+                f.write(f"{item[0]} "
+                        + " ".join(map(str, np.asarray(item[1]).ravel()))
+                        + "\n")
+
+    # ----------------------------------------------------------------- run
+    def _finish(self, pending: dict, dump_dir, n: int) -> dict:
+        """`consume_step` and the scene's dumps, on the worker's stream."""
+        with (torch.cuda.stream(self._stream) if self._stream is not None
+              else contextlib.nullcontext()):
+            out = self.consume_step(pending)
+            if dump_dir is not None:
+                t0 = time.perf_counter()
+                batch = pending["batch"]
+                scan_idx = int(np.asarray(batch.get("scan_idx", [n]))[0])
+                self.visualize_step(out, batch, os.path.join(
+                    dump_dir, f"scene_{scan_idx:05d}"))
+                out["ms"]["dump"] = _ms(t0)
+        return out
+
+    def run(self, loader, ap_iou_thresholds=(0.5,), max_scenes=None,
+            dump_dir=None, overlap: bool = True):
+        """A full evaluation pass -> metrics: `<class> Average Precision
+        @<t>`, `<class> Recall @<t>`, `mAP @<t>`, `AR @<t>` for each
+        threshold and `<class> voxel IoU`. With `overlap` one scene is in
+        flight while the next one's device work is queued; without, the
+        scenes run one after the other. `scene_ms` receives each scene's
+        stage times, `refit_sizes` the sizes of its refit (see
+        `fit_meshes_to_scan`), `run_ms` the host-clock time of the scenes (loading
+        included, the final AP computation not), `metrics_ms` that of the
+        final AP computation."""
+        calculators = {t: APCalculator(t, CLASS2TYPE)
+                       for t in ap_iou_thresholds}
+        cls_iou_stats = {}
+        self.scene_ms, self.refit_sizes = [], []
+        done = 0
+
+        def account(out):
+            nonlocal done
+            for calc in calculators.values():
+                calc.step(out["batch_pred_map_cls"], out["batch_gt_map_cls"])
+            if out["iou_stats"] is not None:
+                for c, i in zip(out["iou_stats"]["cls"],
+                                out["iou_stats"]["iou"]):
+                    cls_iou_stats.setdefault(int(c), []).append(float(i))
+            self.scene_ms.append(out["ms"])
+            self.refit_sizes.append(out["refit_sizes"])
+            done += 1
+            if done % 10 == 0:
+                self.log(f"evaluated {done} scenes")
+
+        t_run = time.perf_counter()
+        with ThreadPoolExecutor(1) as worker:
+            in_flight = None
+            for n, batch in enumerate(loader):
+                if max_scenes is not None and n >= max_scenes:
+                    break
+                pending = self.dispatch_step(batch)
+                if in_flight is not None:
+                    account(in_flight.result())
+                    in_flight = None
+                if overlap:
+                    in_flight = worker.submit(self._finish, pending,
+                                              dump_dir, n)
+                else:
+                    account(self._finish(pending, dump_dir, n))
+            if in_flight is not None:
+                account(in_flight.result())
+        self.run_ms = _ms(t_run)
+
+        t0 = time.perf_counter()
+        metrics = {}
+        for t, calc in calculators.items():
+            for k, v in calc.compute_metrics().items():
+                metrics[f"{k} @{t}"] = v
+        for c, vals in sorted(cls_iou_stats.items()):
+            metrics[f"{CLASS2TYPE.get(c, str(c))} voxel IoU"] = float(
+                np.mean(vals))
+        self.metrics_ms = _ms(t0)
+        return metrics

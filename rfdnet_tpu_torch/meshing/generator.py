@@ -9,8 +9,12 @@ Counterpart of `rfdnet_tpu/meshing/generator.py` `Generator3D` for
 - vertices are rescaled to the padded unit box (padding 0.1);
 - the iso level is logit(threshold).
 
-The logit grids leave the card once per scene, into a pinned host buffer
-that the generator allocates at first use and reuses.
+The logit grids leave the card once per scene, as dense float32, into a
+pinned host buffer of their own (from PyTorch's caching host allocator,
+which hands a freed buffer out again only once its copy is done), so a
+scene's grids stay valid while later scenes download. The JAX package's
+f16 and sparse transfers (`meshing/transfer.py`) exist for the TPU's host
+link and are not ported.
 
 Not ported yet (each raises `NotImplementedError` naming its `ROADMAP.md`
 item): `upsampling_steps > 0` (MISE), `refinement_step`, `simplify_nfaces`,
@@ -43,11 +47,32 @@ def _to_numpy(x) -> np.ndarray:
         np.asarray(x))
 
 
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` in a new host buffer. From the card the buffer is
+    pinned and the copy asynchronous, on the current stream: wait on
+    `copies_done` before reading it."""
+    if t.device.type == "cpu":
+        return t.detach().clone()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+def copies_done(device: torch.device):
+    """An event recorded on the current stream of `device` (None on the
+    CPU): once it has completed, the `host_copy`s enqueued before it hold
+    their values."""
+    if device.type == "cpu":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
 class GridDownload:
     """One scene's grids on their way to the host: `wait()` returns them as
-    a numpy array once the copy has finished. For grids from the card the
-    array is a view of the generator's pinned buffer, valid until that
-    generator's next download."""
+    a numpy array (a view of this download's own buffer) once the copy has
+    finished."""
 
     def __init__(self, host: torch.Tensor, event):
         self._host, self._event = host, event
@@ -89,7 +114,6 @@ class Generator3D:
         self.threshold = threshold
         self.resolution0 = resolution0
         self.padding = padding
-        self._pinned = None
 
     @property
     def iso(self) -> float:
@@ -109,19 +133,11 @@ class Generator3D:
         return logits.reshape(Nb, nx, nx, nx)
 
     def start_download(self, grids: torch.Tensor) -> GridDownload:
-        """Start the copy of `grids` to the host and return at once. From
-        the card the copy goes into the pinned buffer (allocated when the
-        shape is first seen), asynchronously, with an event to wait on."""
-        if grids.device.type == "cpu":
-            return GridDownload(grids.detach(), None)
-        if (self._pinned is None or self._pinned.shape != grids.shape
-                or self._pinned.dtype != grids.dtype):
-            self._pinned = torch.empty(grids.shape, dtype=grids.dtype,
-                                       pin_memory=True)
-        self._pinned.copy_(grids, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(grids.device))
-        return GridDownload(self._pinned, event)
+        """Start the copy of `grids` into a host buffer of its own and return
+        at once: from the card a pinned buffer, copied into asynchronously
+        on the current stream, with an event to wait on."""
+        host = host_copy(grids)
+        return GridDownload(host, copies_done(grids.device))
 
     def generate_meshes(self, features, cls_codes, valid=None):
         """features (Nb, c_dim), cls_codes (Nb, num_class) -> list of

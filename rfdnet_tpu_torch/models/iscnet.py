@@ -1,12 +1,12 @@
 """ISCNet: detection + instance completion, the test-time generation path.
 
 Counterpart of `rfdnet_tpu/models/iscnet.py` (`detect`,
-`parse_predictions`, `generate_detections`, the demo branch of
-`generate_completion`, `generate` with `decode_grid_res`,
-`decode_occupancy`). The grid decode always goes through the fused CBN
-decoder (`ONet.decode_fused`, the CUDA kernel on the card). Variable-size
-results (NMS survivors, completed proposals) stay fixed-shape with
-validity masks, as in the JAX package.
+`parse_predictions`, `generate_detections`, `generate_completion` with and
+without GT fields, `generate` with the eval completion loss, the 16^3
+shape voxels and `decode_grid_res`, `decode_occupancy`). Every occupancy
+decode goes through the fused CBN decoder (`ONet.decode_fused`, the CUDA
+kernel on the card). Variable-size results (NMS survivors, completed
+proposals) stay fixed-shape with validity masks, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,7 +51,8 @@ class ISCNet(nn.Module):
                  phase: str = "completion", skip_propagate: bool = True,
                  c_dim: int = 512, hidden_dim: int = 512, z_dim: int = 32,
                  use_cls_for_completion: bool = False,
-                 generate_limit: int = 64, decoder_bf16: bool = False):
+                 generate_limit: int = 64, decoder_bf16: bool = False,
+                 threshold: float = 0.5):
         super().__init__()
         self.num_heading_bin = num_heading_bin
         self.phase = phase
@@ -78,6 +79,7 @@ class ISCNet(nn.Module):
                 c_dim=c_dim if skip_propagate else 128,
                 use_cls_for_completion=use_cls_for_completion,
                 num_class=num_class, decoder_bf16=decoder_bf16,
+                threshold=threshold,
             )
 
     def detect(self, point_clouds, marks=None, generator=None):
@@ -184,13 +186,18 @@ class ISCNet(nn.Module):
         }
 
     def generate_completion(self, end_points, proposal_features, parsed,
-                            point_clouds, dump_threshold=0.5, marks=None):
-        """Demo mode (no GT fields): the top-`generate_limit` NMS survivors
-        above `dump_threshold`, skip-propagated into conditioning codes.
+                            data, dump_threshold=0.5, marks=None):
+        """The top-`generate_limit` NMS survivors above `dump_threshold`,
+        skip-propagated into conditioning codes. With GT fields in `data`
+        (`center_label`, `box_label_mask`, `sem_cls_label`), each proposal
+        is assigned the nearest GT center (the first on a tie) and takes
+        its class; with instance labels too (`point_instance_labels`,
+        `object_instance_labels`) skip propagation is the supervised one
+        and reports its mask loss over the valid slots.
 
-        Returns proposal_ids (B, G, 3) [proposal, gt (0), class], valid
+        Returns proposal_ids (B, G, 3) [proposal, gt, class], valid
         (B, G), features (B*G, c_dim), cls_codes (B*G, num_class), centers,
-        heading_angles, mask_loss (0)."""
+        heading_angles, mask_loss."""
         B, K = parsed["obj_prob"].shape
         G = min(self.generate_limit, K)
         eligible = parsed["pred_mask"] & (parsed["obj_prob"] > dump_threshold)
@@ -200,8 +207,19 @@ class ISCNet(nn.Module):
                                          stable=True)
         top_scores, top_ids = top_scores[:, :G], top_ids[:, :G]
         valid = top_scores > 0.0
-        gt_ids = torch.zeros_like(top_ids)
-        cls_ids = torch.gather(parsed["pred_sem_cls"], 1, top_ids)
+        if "center_label" in data:
+            d = torch.sum((end_points["center"][:, :, None, :]
+                           - data["center_label"][:, None, :, 0:3]) ** 2,
+                          dim=-1)
+            d = torch.where(data["box_label_mask"][:, None, :] > 0, d,
+                            torch.inf)
+            # argmin takes the first index of the minimum, all-masked -> 0
+            assign = torch.argmin(d, dim=-1)
+            gt_ids = torch.gather(assign, 1, top_ids)
+            cls_ids = torch.gather(data["sem_cls_label"].long(), 1, gt_ids)
+        else:
+            gt_ids = torch.zeros_like(top_ids)
+            cls_ids = torch.gather(parsed["pred_sem_cls"], 1, top_ids)
         proposal_ids = torch.stack([top_ids, gt_ids, cls_ids], dim=-1).to(
             torch.int32)
 
@@ -209,11 +227,20 @@ class ISCNet(nn.Module):
         pred_centers = gather_points(end_points["center"], top_ids)
         heading_angles = torch.gather(self._heading_angles(end_points), 1,
                                       top_ids)
-        if self.skip_propagate:
+        point_clouds = data["point_clouds"]
+        mask_loss = torch.zeros((), device=score.device)
+        if not self.skip_propagate:
+            object_input_features = sel_features
+        elif "point_instance_labels" in data:
+            proposal_instance_labels = torch.gather(
+                data["object_instance_labels"], 1, gt_ids)
+            object_input_features, mask_loss = self.skip_propagation(
+                pred_centers, heading_angles, sel_features, point_clouds,
+                data["point_instance_labels"], proposal_instance_labels,
+                slot_mask=valid)
+        else:
             object_input_features = self.skip_propagation.generate(
                 pred_centers, heading_angles, sel_features, point_clouds)
-        else:
-            object_input_features = sel_features
         sel_sem_scores = gather_points(end_points["sem_cls_scores"], top_ids)
         cls_codes = (sel_sem_scores >= sel_sem_scores.amax(
             dim=-1, keepdim=True)).float()
@@ -225,18 +252,24 @@ class ISCNet(nn.Module):
             "cls_codes": cls_codes.reshape(B * G, -1),
             "centers": pred_centers,
             "heading_angles": heading_angles,
-            "mask_loss": torch.zeros((), device=score.device),
+            "mask_loss": mask_loss,
         }
 
     @torch.no_grad()
     def generate(self, data: dict, nms_iou=0.25, use_cls_nms=True,
                  dump_threshold=0.5, remove_empty_box=False,
-                 decode_grid_res=None, grid_padding=0.1, marks=None):
+                 export_voxels=True, decode_grid_res=None, grid_padding=0.1,
+                 marks=None):
         """Test-time forward: detection + NMS and, in the completion phase,
-        completion conditioning and, with `decode_grid_res`, every selected
-        proposal's dense occupancy logit grid (`out["grids"]`,
-        (B*G, nx, nx, nx)). `marks`: optional list that receives a recorded
-        CUDA event after each stage."""
+        completion conditioning. With `object_points` and
+        `object_points_occ` in `data` (the GT objects' occupancy sets), also
+        the eval completion loss of each slot's assigned object
+        (`completion_loss`) and, with `export_voxels`, the 16^3 shape
+        voxels as packed bits (`shape_voxels_bits`, (B*G, 512) uint8 in
+        `np.packbits` order). With `decode_grid_res`, every selected
+        proposal's dense occupancy logit grid (`grids`, (B*G, nx, nx,
+        nx)). `marks`: optional list that receives a recorded CUDA event
+        after each stage."""
         pc = data["point_clouds"]
         _mark(marks, "start")
         end_points, proposal_features, parsed = self.generate_detections(
@@ -247,10 +280,27 @@ class ISCNet(nn.Module):
         if self.phase != "completion":
             return out
         gen = self.generate_completion(
-            end_points, proposal_features, parsed, pc,
+            end_points, proposal_features, parsed, data,
             dump_threshold=dump_threshold, marks=marks,
         )
         out["gen"] = gen
+        if "object_points" in data:
+            B, G, _ = gen["proposal_ids"].shape
+            gt_ids = gen["proposal_ids"][..., 1].long()
+            T = data["object_points"].shape[2]
+            input_points = torch.gather(
+                data["object_points"], 1,
+                gt_ids[..., None, None].expand(B, G, T, 3)).reshape(B * G, T, 3)
+            input_occ = torch.gather(
+                data["object_points_occ"], 1,
+                gt_ids[..., None].expand(B, G, T)).reshape(B * G, T)
+            loss, voxels = self.completion.compute_loss(
+                gen["features"], input_points, input_occ, gen["cls_codes"],
+                export_shape=export_voxels, valid_mask=gen["valid"].reshape(-1))
+            out["completion_loss"] = loss
+            if voxels is not None:
+                out["shape_voxels_bits"] = pack_bits(voxels.reshape(B * G, -1))
+            _mark(marks, "completion_loss")
         if decode_grid_res:
             nx = int(decode_grid_res)
             pts = (1.0 + grid_padding) * make_3d_grid(
@@ -272,3 +322,12 @@ class ISCNet(nn.Module):
         z = torch.zeros((c.shape[0], self.completion.z_dim),
                         device=c.device)
         return self.completion.decode_fused(points, z, c)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Booleans (..., 8k) -> uint8 (..., k), big-endian within each byte:
+    the layout of `np.packbits(bits, axis=-1)`."""
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
+                           device=bits.device)
+    grouped = bits.reshape(*bits.shape[:-1], -1, 8).to(torch.uint8)
+    return (grouped * weights).sum(dim=-1, dtype=torch.uint8)

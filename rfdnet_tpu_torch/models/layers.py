@@ -2,7 +2,7 @@
 
 Counterpart of `rfdnet_tpu/models/layers.py`: `ResnetBlockFC`,
 `CBatchNorm`, `_AffinelessBatchNorm`, `CResnetBlockConv1d`,
-`ResnetPointnet`, `DecoderCBatchNorm`. A CBatchNorm's conditional affine
+`ResnetPointnet`, `DecoderCBatchNorm`, `EncoderLatent`. A CBatchNorm's conditional affine
 is two `Dense` layers, `gamma` and `beta` (the flax `gamma_kernel/
 gamma_bias` and `beta_kernel/beta_bias`).
 """
@@ -145,3 +145,34 @@ class DecoderCBatchNorm(nn.Module):
         for blk in self.blocks:
             net = blk(net, c)
         return self.fc_out(torch.relu(self.bn(net, c)))[..., 0]
+
+
+class EncoderLatent(nn.Module):
+    """VAE posterior encoder q(z | points, occupancies, c): 128-wide MLPs
+    with max-pool concatenation. p (B, T, 3), occ (B, T), c (B, c_dim) ->
+    (mean (B, z_dim), logstd (B, z_dim))."""
+
+    def __init__(self, c_dim: int = 512, z_dim: int = 32, hidden: int = 128):
+        super().__init__()
+        self.fc_0 = Dense(1, hidden)
+        self.fc_pos = Dense(3, hidden)
+        self.fc_c = Dense(c_dim, hidden) if c_dim else None
+        self.fc_1 = Dense(hidden, hidden)
+        self.fc_2 = Dense(2 * hidden, hidden)
+        self.fc_3 = Dense(2 * hidden, hidden)
+        self.fc_mean = Dense(hidden, z_dim)
+        self.fc_logstd = Dense(hidden, z_dim)
+
+    def forward(self, p, occ, c):
+        net = self.fc_0(occ[..., None]) + self.fc_pos(p)
+        if self.fc_c is not None:
+            net = net + self.fc_c(c)[:, None, :]
+
+        def pool_cat(net):
+            pooled = max_pool_points(net, dim=1, keepdim=True)
+            return torch.cat([net, pooled.expand_as(net)], dim=-1)
+
+        net = pool_cat(self.fc_1(torch.relu(net)))
+        net = pool_cat(self.fc_2(torch.relu(net)))
+        net = max_pool_points(self.fc_3(torch.relu(net)), dim=1)
+        return self.fc_mean(net), self.fc_logstd(net)

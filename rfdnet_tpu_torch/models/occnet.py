@@ -1,10 +1,12 @@
-"""Occupancy network (ONet), eval decode.
+"""Occupancy network (ONet), eval mode.
 
 Counterpart of `rfdnet_tpu/models/occnet.py`: `make_3d_grid`,
-`ONet._cond`, `decode` (the layer-by-layer chain) and `decode_fused`
+`ONet._cond`, `decode` (the layer-by-layer chain), `decode_fused`
 (fc_p/fc_z and the CBN fold in torch, the block chain through
-`ops.fused_cbn_decode`, i.e. the CUDA kernel on the card). The VAE
-encoder and the training loss are not ported yet.
+`ops.fused_cbn_decode`, i.e. the CUDA kernel on the card), `infer_z` (the
+VAE posterior encoder) and the eval `compute_loss` with the 16^3 shape
+voxels. Both of `compute_loss`'s decodes go through `decode_fused`. The
+training loss (a sampled z) is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 from torch import nn
 
 from ..ops import fold_cbn_constants, fused_cbn_decode
-from .layers import DecoderCBatchNorm
+from .layers import DecoderCBatchNorm, EncoderLatent
 
 
 def make_3d_grid(bb_min, bb_max, shape, device=None) -> torch.Tensor:
@@ -28,13 +30,18 @@ def make_3d_grid(bb_min, bb_max, shape, device=None) -> torch.Tensor:
 class ONet(nn.Module):
     def __init__(self, z_dim: int = 32, c_dim: int = 512,
                  use_cls_for_completion: bool = False, num_class: int = 8,
-                 decoder_bf16: bool = False):
+                 decoder_bf16: bool = False, threshold: float = 0.5):
         super().__init__()
         self.z_dim = z_dim
+        self.threshold = threshold
         self.use_cls_for_completion = use_cls_for_completion
         self.mxu_dtype = torch.bfloat16 if decoder_bf16 else torch.float32
         cond_dim = c_dim + num_class * use_cls_for_completion
         self.decoder = DecoderCBatchNorm(c_dim=cond_dim, z_dim=z_dim)
+        # registered after the decoder, so that `weights.init_seeded` draws
+        # the decoder's values before the encoder's
+        if z_dim != 0:
+            self.encoder_latent = EncoderLatent(c_dim=cond_dim, z_dim=z_dim)
 
     def _cond(self, features, cls_codes):
         if self.use_cls_for_completion:
@@ -63,3 +70,54 @@ class ONet(nn.Module):
         """`decode` through the fused kernel, in `mxu_dtype` operands."""
         return fused_cbn_decode(*self.fused_operands(p, z, c),
                                 mxu_dtype=self.mxu_dtype)
+
+    def infer_z(self, p, occ, c):
+        """Posterior (mean, logstd) of z, each (Nb, z_dim)."""
+        if self.z_dim != 0:
+            return self.encoder_latent(p, occ, c)
+        zeros = torch.zeros((p.shape[0], 0), device=p.device)
+        return zeros, zeros
+
+    def compute_loss(self, input_features, input_points, input_points_occ,
+                     cls_codes, export_shape: bool = False, valid_mask=None):
+        """The eval loss: KL(q(z | points, occ, c) || N(0, I)) summed over
+        z, plus the BCE of the decode at the posterior mean z summed over
+        points, averaged over the objects (weighted by `valid_mask` (Nb,)
+        when given). With `export_shape`, also the (Nb, 16, 16, 16)
+        occupancy voxels at the prior mean z.
+
+        input_features (Nb, c_dim), input_points (Nb, T, 3),
+        input_points_occ (Nb, T), cls_codes (Nb, num_class) ->
+        (loss scalar, voxels bool or None)."""
+        c = self._cond(input_features, cls_codes)
+        Nb = c.shape[0]
+        mean_z, logstd_z = self.infer_z(input_points, input_points_occ, c)
+        logstd_z = torch.clamp(logstd_z, -20.0, 20.0)
+        std = torch.exp(logstd_z)
+        kl = 0.5 * torch.sum(std ** 2 + mean_z ** 2 - 1.0 - 2.0 * logstd_z,
+                             dim=-1)
+        logits = self.decode_fused(input_points, mean_z, c)
+        bce = _bce_with_logits(logits, input_points_occ)
+        per_obj = kl + torch.sum(bce, dim=-1)
+        if valid_mask is not None:
+            w = valid_mask.float()
+            loss = torch.sum(per_obj * w) / torch.clamp(torch.sum(w), min=1e-6)
+        else:
+            loss = torch.mean(per_obj)
+
+        voxels = None
+        if export_shape:
+            shape = (16, 16, 16)
+            p = make_3d_grid([-0.5 + 1 / 32] * 3, [0.5 - 1 / 32] * 3, shape,
+                             device=c.device)
+            z0 = torch.zeros((Nb, self.z_dim), device=c.device)
+            logits_v = self.decode_fused(p[None].expand(Nb, -1, -1), z0, c)
+            voxels = (torch.sigmoid(logits_v) >= self.threshold).reshape(
+                Nb, *shape)
+        return loss, voxels
+
+
+def _bce_with_logits(logits, targets):
+    """Binary cross entropy with logits, elementwise (no reduction)."""
+    return (torch.clamp(logits, min=0.0) - logits * targets
+            + torch.log1p(torch.exp(-torch.abs(logits))))

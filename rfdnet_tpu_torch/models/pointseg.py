@@ -1,7 +1,9 @@
-"""PointNet instance segmentation head (per-point mask), eval forward.
+"""PointNet instance segmentation head (per-point mask), eval forward,
+and its loss.
 
 Counterpart of `rfdnet_tpu/models/pointseg.py`: input STN3d (3x3), feature
-STNkd (64x64), seg head 1088 -> 512 -> 256 -> 128 -> 2 with log-softmax.
+STNkd (64x64), seg head 1088 -> 512 -> 256 -> 128 -> 2 with log-softmax;
+`pointseg_loss` (NLL + the feature transform's orthogonality penalty).
 """
 
 from __future__ import annotations
@@ -87,3 +89,32 @@ class PointSeg(nn.Module):
         for i in range(1, 4):
             h = torch.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(h)))
         return torch.log_softmax(self.conv4(h), dim=-1), trans_feat
+
+
+def feature_transform_regularizer(trans, weights=None):
+    """The orthogonality penalty of the feature transform, as the reference
+    computes it: bmm(A, A^T - I) (the -I before the product), its
+    Frobenius norm per item, then the mean over the batch (weighted by
+    `weights` (B,) when given)."""
+    eye = torch.eye(trans.shape[1], dtype=trans.dtype, device=trans.device)
+    prod = torch.bmm(trans, trans.transpose(1, 2) - eye)
+    norms = torch.linalg.matrix_norm(prod)
+    if weights is None:
+        return norms.mean()
+    return torch.sum(norms * weights) / torch.clamp(torch.sum(weights),
+                                                    min=1e-6)
+
+
+def pointseg_loss(log_probs, target, trans_feat, mat_diff_loss_scale=0.001,
+                  sample_weights=None, trans_weights=None):
+    """NLL + 0.001 x orthogonality penalty. log_probs (M, C), target (M,)
+    integer -> scalar. sample_weights (M,) / trans_weights (B,): weighted
+    means that leave out padded proposal slots."""
+    per = -torch.gather(log_probs, 1, target[:, None].long())[:, 0]
+    if sample_weights is None:
+        nll = per.mean()
+    else:
+        nll = torch.sum(per * sample_weights) / torch.clamp(
+            torch.sum(sample_weights), min=1e-6)
+    reg = feature_transform_regularizer(trans_feat, trans_weights)
+    return nll + reg * mat_diff_loss_scale

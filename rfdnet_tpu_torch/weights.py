@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from .models.common import BatchNorm, Dense
-from .models.layers import CBatchNorm, _AffinelessBatchNorm
+from .models.layers import CBatchNorm, EncoderLatent, _AffinelessBatchNorm
 
 _PARAM_LEAVES = {
     "kernel": ("weight", True),
@@ -99,11 +99,27 @@ def init_seeded(model: nn.Module, seed: int, noise: float = 0.02) -> nn.Module:
     The perturbation matters: at init every fc_1 is zero and every CBN is
     the identity, which would leave the decoder's matmuls untested."""
     g = torch.Generator().manual_seed(seed)
+    # the posterior encoder is filled after the rest, init and noise: it is
+    # not on the generation path, whose seeded values stay those of a model
+    # without it
+    late = {name: m for name, m in model.named_modules()
+            if isinstance(m, EncoderLatent)}
+    inside = {id(sub) for m in late.values() for sub in m.modules()}
+    state = model.state_dict(keep_vars=True)
+    _fill([m for m in model.modules() if id(m) not in inside],
+          {k: t for k, t in state.items()
+           if not any(k.startswith(name + ".") for name in late)}, g, noise)
+    for m in late.values():
+        _fill(list(m.modules()), m.state_dict(keep_vars=True), g, noise)
+    return model
 
+
+def _fill(modules, state: dict, g: torch.Generator, noise: float) -> None:
+    """`init_seeded`'s draws over `modules` and their tensors `state`."""
     def fill(t: torch.Tensor, values: torch.Tensor) -> None:
         t.copy_(values.to(t.device))
 
-    for module in model.modules():
+    for module in modules:
         if isinstance(module, Dense):
             bound = 1.0 / module.in_features ** 0.5
             w = torch.empty(module.weight.shape).uniform_(-bound, bound,
@@ -119,10 +135,9 @@ def init_seeded(model: nn.Module, seed: int, noise: float = 0.02) -> nn.Module:
                 module.weight.fill_(1.0)
                 module.bias.zero_()
     # CBN affines start as the identity: gamma = 0 * c + 1, beta = 0 * c + 0
-    for module in model.modules():
+    for module in modules:
         if isinstance(module, CBatchNorm):
             module.gamma.bias.fill_(1.0)
             module.beta.bias.zero_()
-    for _, t in sorted(model.state_dict(keep_vars=True).items()):
+    for _, t in sorted(state.items()):
         t.add_(torch.randn(t.shape, generator=g).to(t.device) * noise)
-    return model

@@ -94,7 +94,8 @@ def test_load_config_and_eval_config_match_jax(name, mode):
     assert got == want.config
     ec = tconfig.eval_config(got)
     assert ec == {k: want.eval_config[k] for k in ec}
-    assert sorted(ec) == ["cls_nms", "nms_iou", "remove_empty_box"]
+    assert sorted(ec) == ["cls_nms", "conf_thresh", "nms_iou",
+                          "per_class_proposal", "remove_empty_box"]
 
 
 def test_load_config_from_dict_and_defaults():
@@ -206,8 +207,14 @@ def test_generate_reuses_the_generator_and_times_the_host(pair, demo_outputs):
     for a, b in zip(again[2], meshes):
         np.testing.assert_array_equal(a.vertices, b.vertices)
         np.testing.assert_array_equal(a.faces, b.faces)
-    with pytest.raises(NotImplementedError, match="Refit"):
-        demo.generate(cfg, pair[2], data, post_processing=True)
+    # the refit moves boxes and nothing else
+    refit = demo.generate(cfg, pair[2], data, generator=generator,
+                          post_processing=True)
+    assert_equal(refit[1]["proposal_ids"], gen["proposal_ids"])
+    corners = "pred_corners_3d_upright_camera"
+    assert np.abs(refit[0][corners] - parsed[corners]).max() > 0
+    for k in ("obj_prob", "pred_mask"):
+        assert_equal(refit[0][k], parsed[k], what=k)
     sampled = tconfig.load_config(
         {"generation": {"use_sampling": True}}, "demo")
     with pytest.raises(NotImplementedError, match="MISE"):
@@ -425,8 +432,7 @@ def test_cli_loads_the_npz_beside_a_weight_path(pair, tmp_path):
         assert torch.equal(v, want_state[k]), k
 
 
-@pytest.mark.parametrize("mode, item", [("train", "Training"),
-                                        ("test", "Tester")])
+@pytest.mark.parametrize("mode, item", [("train", "Training")])
 def test_cli_unported_modes_raise(mode, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["--config", TEST_YAML, "--mode", mode, "--device", "cpu"])

@@ -1,4 +1,5 @@
-"""Boundaries of the port: no JAX, YAML package or `rfdnet_tpu` inside it,
+"""Boundaries of the port: no JAX, flax, optax, orbax, YAML package or
+`rfdnet_tpu` inside it (every module of the package, scanned),
 its settings equal the test config's, and its entry points never drop to
 the CPU on their own.
 
@@ -20,7 +21,7 @@ from rfdnet_tpu_torch import demo
 from torch_parity import TEST_YAML
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "orbax", "yaml", "rfdnet_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "yaml", "rfdnet_tpu")
 
 
 def _port_sources():
@@ -56,7 +57,8 @@ def test_config_equals_test_yaml():
             assert cfg[section][key] == value, (section, key)
     ec = Config(TEST_YAML, mode="test", make_dirs=False).eval_config
     assert tconfig.eval_config() == {
-        k: ec[k] for k in ("nms_iou", "cls_nms", "remove_empty_box")}
+        k: ec[k] for k in ("nms_iou", "cls_nms", "remove_empty_box",
+                           "per_class_proposal", "conf_thresh")}
 
 
 def test_dataset_constants_equal_rfdnet_tpu():

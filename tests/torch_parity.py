@@ -84,7 +84,11 @@ def scene(seed: int, num_points: int = 4096) -> np.ndarray:
 def iscnet_pair(generate_limit: int = 8, seed: int = 0):
     """(jax model, numpy variables, port model on the CPU) of the test
     config, the variables from `init` through `ISCNet.generate`, which
-    creates every parameter of the generation path."""
+    creates every parameter of the generation path, and the posterior
+    encoder's (which only the completion loss reaches) from an `init` of
+    its own, added without moving the others' values."""
+    from rfdnet_tpu.models.layers import EncoderLatent
+
     cfg = Config(TEST_YAML, mode="test", make_dirs=False)
     model = cfg.build_model(generate_limit=generate_limit)
     pc = jnp.asarray(scene(seed))
@@ -93,6 +97,11 @@ def iscnet_pair(generate_limit: int = 8, seed: int = 0):
         method=ISCNet.generate, decode_grid_res=2,
     ))(pc)
     variables = perturb(variables, seed)
+    z_dim, c_dim = cfg.config["data"]["z_dim"], cfg.config["data"]["c_dim"]
+    encoder = init_flax(EncoderLatent(z_dim=z_dim), seed + 1000,
+                        jnp.zeros((1, 8, 3)), jnp.zeros((1, 8)),
+                        jnp.zeros((1, c_dim)))
+    variables["params"]["completion"]["encoder_latent"] = encoder["params"]
     port = tconfig.build_model(generate_limit=generate_limit, device="cpu")
     return model, variables, load_port(port, variables)
 
