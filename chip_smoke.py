@@ -16,7 +16,10 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    (256 of the scene's 1024 votes), and at the shapes that can go wrong apart
    from them: two scenes in a batch, a size just below and just above
    every switch of `fps_route` (the last one takes the streaming kernel),
-   near-origin points, more samples than points. Each main-path row names
+   near-origin points, more samples than points; and the five shapes of
+   a train step at batch 8 (`batch_shapes`: eight scenes, each with the
+   route's `active_clusters`, the clusters the card runs at once). Each
+   main-path row names
    its route and gives the time per step, `prev_ms` (the streaming kernel,
    which served these shapes before the resident one, at the same shape;
    its indices are held to the plain version too), `bound_ms`
@@ -66,6 +69,20 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    against the CPU (same weights): NMS mask, proposal and GT ids equal,
    losses within tolerance, voxel bits equal away from the iso level,
    refit boxes close where both meshes are equal.
+10. train: eight full-width synthetic scenes (80000 points, 12 objects)
+   in the dataset's layout, listed in both the train and the val split,
+   and a copy of `configs/iscnet.yaml` (stage 3) with `finetune: false`,
+   `weight: []`, `epochs: 3` and this script's seed: `rfdnet_tpu_torch.
+   cli.main --mode train` on the card, three Adam steps at batch 8 and
+   three val steps. Per step: loader wait, host and device ms, every
+   loss term (all finite), the kernel launches (FPS 5 and CBN 0 a train
+   step, FPS 5 and CBN 1 a val step); peak device memory; `model_best`
+   and `model_last` load through `weights.load_npz`; a fourth epoch with
+   `resume: true` starts from epoch 3. Then stages 1
+   (`iscnet_detection.yaml`, `vote_fps`) and 2 (`iscnet_completion.yaml`,
+   finetuned from stage 1's `model_best`, backbone/voting/detection
+   frozen) one step each at 4096 points, batch 2; and one stage-3 train
+   step at 4096 points on the card against the CPU (`train_reference`).
 Then the `kernels` summary line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -95,6 +112,7 @@ SCENE = os.path.join(ROOT, "demo", "outputs", "synthetic_room",
 TEST_YAML = os.path.join(ROOT, "configs", "iscnet_test.yaml")
 DETECTION_YAML = os.path.join(ROOT, "configs", "iscnet_detection.yaml")
 SEED = 0
+TRAIN_BATCH = 8  # train.batch_size of configs/iscnet.yaml
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
@@ -209,10 +227,11 @@ def fps_resident_ptxas(rows):
     return out
 
 
-def fps_inputs(xyz, votes):
+def fps_inputs(xyz, votes=None):
     """The FPS inputs of the paths: SA1-4 (each sampling the previous
     layer's samples), seed_fps over the 1024 seeds (main path and demo),
-    and vote_fps over the scene's 1024 votes (detection path)."""
+    and with `votes`, vote_fps over the scene's 1024 votes (detection
+    path)."""
     from rfdnet_tpu_torch.ops import furthest_point_sample, gather_points
 
     shapes = [(2048, "sa1"), (1024, "sa2"), (512, "sa3"), (256, "sa4")]
@@ -223,7 +242,8 @@ def fps_inputs(xyz, votes):
         if name == "sa2":
             seeds = cur
     out.append(("seed_fps", seeds, 256))
-    out.append(("vote_fps", votes, 256))
+    if votes is not None:
+        out.append(("vote_fps", votes, 256))
     return out
 
 
@@ -299,7 +319,40 @@ def phase_fps(xyz, votes, reps: int = 3, sa1_repeats: int = 5):
         check(equal, f"fps {name}: kernel indices differ from the plain version")
     check(any(e["route"]["kind"] == "streaming" for e in edges),
           "fps: no edge shape reached the streaming kernel")
-    emit(phase="fps", shapes=rows, edges=edges)
+    batch_rows = fps_batch_rows(xyz, TRAIN_BATCH, reps)
+    emit(phase="fps", shapes=rows, edges=edges, batch_shapes=batch_rows)
+    return rows, batch_rows
+
+
+def fps_batch_rows(xyz, b: int, reps: int = 3):
+    """The five FPS shapes of a train step (SA1-4, seed_fps) at batch b:
+    b scenes, the cloud scaled by 1 + 0.01 i for scene i. Each row: its
+    route, how many of the route's clusters the card runs at once
+    (`active_clusters`; b scenes need b), indices equal to `fps_plain`,
+    kernel ms, bound, plain ms."""
+    from rfdnet_tpu_torch.ops.fps import (active_clusters, fps_plain,
+                                          fps_route, furthest_point_sample)
+
+    scale = 1 + 0.01 * torch.arange(b, device=xyz.device)[:, None, None]
+    rows = []
+    for name, pts, npoint in fps_inputs((xyz * scale).contiguous()):
+        N, steps = pts.shape[1], npoint - 1
+        route = fps_route(N, b)
+        k = furthest_point_sample(pts, npoint)
+        p = fps_plain(pts, npoint)
+        equal = bool(torch.equal(k, p))
+        bnd, by = bound_ms(b * (N * 12 + npoint * 4), 10.0 * b * N * steps,
+                           F32_FLOPS)
+        rows.append(dict(
+            name=name, b=b, n=N, npoint=npoint, equal=equal,
+            max_abs_err=int((k.long() - p.long()).abs().max()),
+            route=dataclasses.asdict(route),
+            active_clusters=active_clusters(route, b),
+            ms=cuda_ms(lambda: furthest_point_sample(pts, npoint), reps),
+            plain_ms=cuda_ms(lambda: fps_plain(pts, npoint), 1, 0),
+            bound_ms=bnd, bound_by=by))
+        check(equal, f"fps {name} at batch {b}: kernel indices differ from "
+              "the plain version")
     return rows
 
 
@@ -1026,13 +1079,312 @@ def phase_tester(dev, reps: int = 3):
     return per_scene, cbn
 
 
-def kernel_summary(fps_rows, cbn_rows, launches, test_cbn):
+TRAIN_YAML = os.path.join(ROOT, "configs", "iscnet.yaml")
+COMPLETION_YAML = os.path.join(ROOT, "configs", "iscnet_completion.yaml")
+TRAIN_SCENES = 8
+
+
+def config_copy(src: str, dst: str, pairs) -> str:
+    """A copy of the config `src` at `dst` with each (old, new, count) of
+    `pairs` replaced (old must occur `count` times). Returns `dst`."""
+    with open(src) as f:
+        text = f.read()
+    for old, new, count in pairs:
+        check(text.count(old) == count, f"{src}: the config's line {old!r}")
+        text = text.replace(old, new)
+    with open(dst, "w") as f:
+        f.write(text)
+    return dst
+
+
+def train_pairs(paths: dict, tmp: str, epochs: int):
+    """The replacements every training config copy takes: this script's
+    seed, the synthetic scenes, `epochs`, runs under `tmp`."""
+    return [("\nseed: 10\n", f"\nseed: {SEED}\n", 1),
+            ("split: datasets/splits/fullscan", f"split: {paths['split']}", 1),
+            ("shapenet_path: datasets/ShapeNetv2_data",
+             f"shapenet_path: {paths['shapenet_path']}", 1),
+            ("epochs: 240", f"epochs: {epochs}", 1),
+            ("path: out/iscnet", f"path: {os.path.join(tmp, 'runs')}", 1)]
+
+
+class StepProbe:
+    """Wraps the loop's train and eval steps: each step's phase, loss
+    terms and kernel launches (counts read before and after it)."""
+
+    def __init__(self):
+        from rfdnet_tpu_torch.train import loop
+
+        self.loop, self.steps = loop, []
+        self.saved = (loop.train_step, loop.eval_step)
+
+    def wrap(self, fn, phase):
+        def step(*args, **kw):
+            before = read_launches()
+            losses = fn(*args, **kw)
+            after = read_launches()
+            self.steps.append(dict(phase=phase, losses={
+                k: float(v) for k, v in losses.items()}, launches={
+                k: after[k] - before[k] for k in after}))
+            return losses
+        return step
+
+    def __enter__(self):
+        self.loop.train_step = self.wrap(self.saved[0], "train")
+        self.loop.eval_step = self.wrap(self.saved[1], "val")
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.train_step, self.loop.eval_step = self.saved
+
+
+def train_cli(cfg_path: str):
+    """`cli.main --mode train` on `cfg_path` with its steps probed; returns
+    (trainer, the probe's steps, host seconds)."""
+    from rfdnet_tpu_torch import cli
+
+    with StepProbe() as probe:
+        t0 = time.perf_counter()
+        trainer = cli.main(["--config", cfg_path, "--mode", "train"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return trainer, probe.steps, wall
+
+
+def train_reference(dev, num_points: int = 4096) -> dict:
+    """One stage-3 train step at `num_points`, batch 2, on the card and on
+    the CPU, from the same seeded weights, batch (scene points on a 1/128
+    grid, so that their distances are exact on both) and posterior noise.
+    Exact: the FPS indices and the selected proposals. Loss terms: atol
+    1e-4, rtol 1e-3 (the devices sum in other orders through ~20
+    train-mode batch norms). Parameters: Adam's first step moves each by
+    at most lr x its LR scale, so the two differ by at most twice that;
+    the share that differ by more than 1e-3 of it is reported. Running
+    statistics: atol 0.1, rtol 5e-2 (PointSeg's batch norms of a
+    max-pooled feature over few samples keep few digits of their
+    variance; the first run read 0.94 of atol 5e-2, rtol 2e-2, the JAX
+    step test's tolerance), the worst named."""
+    import copy
+
+    import numpy as np
+
+    from rfdnet_tpu_torch import config, weights
+    from rfdnet_tpu_torch.data.synthetic import synthetic_scene_batch
+    from rfdnet_tpu_torch.models.common import set_bn_momentum
+    from rfdnet_tpu_torch.train.loop import Trainer
+    from rfdnet_tpu_torch.train.trainer import train_step
+
+    cfg = config.load_config(TRAIN_YAML, mode="train")
+    cfg["data"]["num_point"] = num_points
+    b = synthetic_scene_batch(np.random.RandomState(SEED), batch_size=2,
+                              num_points=num_points, num_objects=8,
+                              mean_size_arr=config.MEAN_SIZE_ARR)
+    pc = b["point_clouds"]
+    pc[..., :3] = np.round(pc[..., :3] * 128) / 128
+    floor = np.percentile(pc[..., 2], 0.99, axis=1)[:, None]
+    pc[..., 3] = np.round((pc[..., 2] - floor) * 128) / 128
+    g = torch.Generator().manual_seed(SEED)
+    eps = torch.randn(2 * cfg["data"]["completion_limit_in_train"],
+                      cfg["data"]["z_dim"], generator=g)
+    card = weights.init_seeded(config.build_model(cfg, device=dev,
+                                                  mode="train"), SEED)
+    cpu = copy.deepcopy(card).to("cpu")
+    bnm = config.bn_momentum(cfg, 0)
+    lr = cfg["optimizer"]["lr"]
+    out = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        d = next(model.parameters()).device
+        batch = {k: torch.from_numpy(np.array(v)).to(d) for k, v in b.items()}
+        probe = copy.deepcopy(model).train()
+        set_bn_momentum(probe, bnm)
+        with torch.no_grad():
+            ep, _, _, pids = probe(batch, eps=eps.to(d))
+        trainer = Trainer(cfg, model)
+        set_bn_momentum(model, bnm)
+        losses = train_step(model, trainer.optimizer, batch, lr,
+                            trainer.completion_weight, eps=eps.to(d))
+        out[name] = dict(ep=ep, pids=pids, losses=losses,
+                         state=model.state_dict())
+    c, p = out["card"], out["cpu"]
+    for k in ("sa1_inds", "sa2_inds", "fp2_inds", "aggregated_vote_inds"):
+        check(torch.equal(c["ep"][k].cpu(), p["ep"][k]),
+              f"train reference: {k} differ between the card and the CPU")
+    check(torch.equal(c["pids"].cpu(), p["pids"]),
+          "train reference: selected proposals differ")
+    loss_err = {k: float((c["losses"][k].cpu() - v).abs())
+                for k, v in p["losses"].items()}
+    for k, v in p["losses"].items():
+        check(loss_err[k] <= 1e-4 + 1e-3 * float(v.abs()),
+              f"train reference: {k} {float(c['losses'][k])} against "
+              f"{float(v)}")
+    param_err, beyond, total, stat_err, worst = 0.0, 0, 0, 0.0, None
+    names = dict(card.named_parameters())
+    for k, v in p["state"].items():
+        got = c["state"][k].cpu()
+        if k in names:
+            d = (got - v).abs()
+            param_err = max(param_err, float(d.max()) / lr)
+            beyond += int((d > 1e-3 * lr).sum())
+            total += d.numel()
+        elif "running" in k:
+            err = float(((got - v).abs() / (0.1 + 5e-2 * v.abs())).max())
+            if err > stat_err:
+                stat_err, worst = err, k
+    check(param_err <= 2 * (1 + 1e-3),
+          f"train reference: a parameter moved {param_err} x lr apart")
+    check(stat_err <= 1.0, f"train reference: running statistics "
+          f"{stat_err} x their tolerance apart")
+    return dict(points=num_points, loss_err=loss_err,
+                param_err_over_lr=param_err,
+                params_beyond_1e3_lr=beyond / total,
+                stats_err_over_tol=stat_err, stats_worst=worst,
+                selected=int(c["pids"].shape[1]))
+
+
+def phase_train(dev):
+    """Training (see the module docstring). Returns the launches of one
+    train step and one val step at full width."""
+    import copy
+    import math
+
+    from rfdnet_tpu_torch import weights
+    from rfdnet_tpu_torch.data.synthetic import write_scannet_scenes
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            paths = write_scannet_scenes(os.path.join(tmp, "data"),
+                                         TRAIN_SCENES, seed=SEED,
+                                         num_points=80000, num_objects=12)
+            write_s = time.perf_counter() - t0
+            full = train_pairs(paths, tmp, 3) + [
+                ("finetune: true", "finetune: false", 1),
+                ("weight:\n- out/iscnet/<stage2-run>/model_best\n",
+                 "weight: []\n", 1)]
+            cfg3 = config_copy(TRAIN_YAML, os.path.join(tmp, "stage3.yaml"),
+                               full)
+            torch.cuda.reset_peak_memory_stats()
+            trainer, steps, wall = train_cli(cfg3)
+            peak = torch.cuda.max_memory_allocated()
+            run = trainer.save_path
+            files = sorted(os.listdir(run))
+            loaded = {}
+            for name in ("model_best", "model_last"):
+                lines = []
+                weights.load_npz(copy.deepcopy(trainer.model), os.path.join(
+                    run, name + ".npz"), log=lines.append)
+                loaded[name] = lines
+            # a fourth epoch, resumed from the run's model_last
+            cfg4 = config_copy(cfg3, os.path.join(tmp, "stage3_resume.yaml"),
+                               [("epochs: 3", "epochs: 4", 1),
+                                ("resume: false", "resume: true", 1)])
+            resumed, resumed_steps, resumed_wall = train_cli(cfg4)
+            # stages 1 and 2 at 4096 points, batch 2, one step each
+            small = write_scannet_scenes(os.path.join(tmp, "small"), 2,
+                                         seed=SEED + 1, num_points=4096,
+                                         num_objects=12)
+            short = train_pairs(small, tmp, 1) + [
+                ("num_point: 80000", "num_point: 4096", 1)]
+            cfg1 = config_copy(DETECTION_YAML, os.path.join(tmp, "s1.yaml"),
+                               short + [("batch_size: 8", "batch_size: 2", 2)])
+            stage1, stage1_steps, _ = train_cli(cfg1)
+            cfg2 = config_copy(COMPLETION_YAML, os.path.join(tmp, "s2.yaml"),
+                               short + [
+                                   ("batch_size: 8", "batch_size: 2", 2),
+                                   ("- out/iscnet/<stage1-run>/model_best",
+                                    "- " + os.path.join(stage1.save_path,
+                                                        "model_best"), 1)])
+            stage2, stage2_steps, _ = train_cli(cfg2)
+            cbn = val_decode_row(trainer, cfg3)
+        finally:
+            os.chdir(cwd)
+    reference = train_reference(dev)
+
+    timed = [dict(s, launches=p["launches"])
+             for s, p in zip(trainer.step_times, steps)]
+    train_steps = [s for s in steps if s["phase"] == "train"]
+    val_steps = [s for s in steps if s["phase"] == "val"]
+    finite = all(math.isfinite(v) for s in steps + resumed_steps
+                 + stage1_steps + stage2_steps for v in s["losses"].values())
+    emit(phase="train", scenes=TRAIN_SCENES, points=80000,
+         batch=trainer.cfg["train"]["batch_size"], write_scenes_s=write_s,
+         cli_s=wall, peak_memory_gib=peak / 2 ** 30, steps=timed,
+         losses=[dict(phase=s["phase"], **s["losses"]) for s in steps],
+         files=files, loaded=loaded,
+         resumed_epochs=sorted({s["epoch"] for s in resumed.step_times}),
+         resumed_cli_s=resumed_wall,
+         stage1=dict(steps=stage1_steps, sampling=stage1.model.detection
+                     .sampling, phase=stage1.model.phase),
+         stage2=dict(steps=stage2_steps, frozen=list(stage2.frozen)),
+         reference=reference, cbn_decode_val=cbn)
+    check(len(train_steps) == 3 and len(val_steps) == 3,
+          f"train: {len(train_steps)} train and {len(val_steps)} val steps")
+    check(finite, "train: a loss is not finite")
+    check(all(s["launches"] == {"fps": 5, "cbn_decode": 0}
+              for s in train_steps),
+          "train: launches of the train steps "
+          f"{[s['launches'] for s in train_steps]}")
+    check(all(s["launches"] == {"fps": 5, "cbn_decode": 1}
+              for s in val_steps),
+          "train: launches of the val steps "
+          f"{[s['launches'] for s in val_steps]}")
+    for name in ("model_best", "model_last"):
+        check(f"{name}.npz" in files and loaded[name][0] == "set() subnet "
+              "missed.", f"train: {name} missing or not loaded: {loaded}")
+    check(sorted({s["epoch"] for s in resumed.step_times}) == [3],
+          "train: the resumed run did not start from epoch 3")
+    check(stage1.model.detection.sampling == "vote_fps"
+          and stage2.frozen == ("backbone", "voting", "detection")
+          and len(stage1_steps) == 2 and len(stage2_steps) == 2,
+          "train: stages 1 and 2")
+    return train_steps[0]["launches"], val_steps[0]["launches"], cbn
+
+
+def val_decode_row(trainer, cfg_path: str) -> dict:
+    """The CBN kernel against its plain version on the operands of a
+    full-width val step's one decode (80 proposals x 2048 points, the
+    posterior-mean z), captured from `eval_step` on a val batch."""
+    import rfdnet_tpu_torch.models.occnet as occnet
+    from rfdnet_tpu_torch import cli, config
+    from rfdnet_tpu_torch.train.loop import to_device
+    from rfdnet_tpu_torch.train.trainer import eval_step
+
+    cfg = config.load_config(cfg_path, mode="train")
+    batch = next(iter(cli._build_loaders(cfg, ["val"])["val"]))
+    captured, launch = [], occnet.fused_cbn_decode
+
+    def capture(*ops, **kw):
+        captured.append(ops)
+        return launch(*ops, **kw)
+
+    occnet.fused_cbn_decode = capture
+    try:
+        eval_step(trainer.model, to_device(batch, trainer.device),
+                  trainer.completion_weight)
+    finally:
+        occnet.fused_cbn_decode = launch
+    check(len(captured) == 1, f"train: {len(captured)} decodes in a val step")
+    with torch.no_grad():
+        row = cbn_row(captured[0])
+    row.pop("out")
+    check(row["max_abs_err"] <= row["tol"],
+          f"train: cbn_decode at the val decode: kernel vs plain max err "
+          f"{row['max_abs_err']} > {row['tol']}")
+    return row
+
+
+def kernel_summary(fps_rows, fps_batch, cbn_rows, launches, test_cbn):
     """One entry per kernel. `launches` and the times are the main path's
     (to the grids): FPS summed over its five calls there, the CBN decoder
     in the test config's f32 mode; `launches_by_path` has every driven
-    path's count (the test path's a scene), `detection_ms` the FPS calls
-    of the detection path (SA1-4 and vote_fps), and the CBN entry's
-    `test_shapes` the kernel at the test path's two other decodes."""
+    path's count (the test path's a scene, `train` a full-width train
+    step, `train_val` its val step), `detection_ms` the FPS calls of the
+    detection path (SA1-4 and vote_fps), the FPS entry's `train_batch`
+    its five calls of a train step at batch 8, and the CBN entry's
+    `test_shapes` the kernel at the test path's two other decodes and at
+    the val step's (`train_val_t2048`, 80 proposals)."""
     f32 = cbn_rows["float32"]
     main = [r for r in fps_rows if r["name"] != "vote_fps"]
     detection = [r for r in fps_rows if r["name"] != "seed_fps"]
@@ -1052,7 +1404,14 @@ def kernel_summary(fps_rows, cbn_rows, launches, test_cbn):
              bound_by=main[0]["bound_by"], library_ms=None,
              chain_bound_ms=sum(r["chain_bound_ms"] for r in main),
              prev_ms=sum(r["prev_ms"] for r in main),
-             detection_ms=sum(r["ms"] for r in detection)),
+             detection_ms=sum(r["ms"] for r in detection),
+             train_batch=dict(
+                 b=fps_batch[0]["b"], ms=sum(r["ms"] for r in fps_batch),
+                 plain_ms=sum(r["plain_ms"] for r in fps_batch),
+                 bound_ms=sum(r["bound_ms"] for r in fps_batch),
+                 max_abs_err=max(r["max_abs_err"] for r in fps_batch),
+                 active_clusters={r["name"]: r["active_clusters"]
+                                  for r in fps_batch})),
         dict(name="cbn_decode", route="cuda",
              source="rfdnet_tpu_torch/csrc/cbn_decoder.cu",
              replaces="rfdnet_tpu/ops/cbn_decoder.py:160",
@@ -1085,7 +1444,8 @@ def main() -> int:
     cfg, data, model = slice_setup(dev)
     with torch.no_grad():
         votes = model.detect(data["point_clouds"])[0]["vote_xyz"].contiguous()
-    fps_rows = phase_fps(data["point_clouds"][..., :3].contiguous(), votes)
+    fps_rows, fps_batch = phase_fps(data["point_clouds"][..., :3].contiguous(),
+                                    votes)
     cbn_rows = phase_cbn(model, dev)
     torch.cuda.empty_cache()
     launches, grids, valid, meshes = phase_slice(model, data, cfg)
@@ -1094,8 +1454,10 @@ def main() -> int:
     launches["demo"] = phase_demo()
     launches["detection"] = phase_detection(dev)
     launches["test"], test_cbn = phase_tester(dev)
+    launches["train"], launches["train_val"], train_cbn = phase_train(dev)
+    test_cbn["train_val_t2048"] = train_cbn
 
-    print(json.dumps({"kernels": kernel_summary(fps_rows, cbn_rows,
+    print(json.dumps({"kernels": kernel_summary(fps_rows, fps_batch, cbn_rows,
                                                 launches, test_cbn)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
-"""PyTorch + CUDA port of `rfdnet_tpu`'s test-time generation path.
+"""PyTorch + CUDA port of `rfdnet_tpu`: test-time generation, the
+evaluation, and training.
 
 The package mirrors `rfdnet_tpu`'s module layout (`ops/fps.py`,
-`models/pointnet2.py`, ...) and its channels-last tensor layouts, so each
-function has a counterpart of the same name there. The two Pallas kernels
-of the JAX package are hand-written CUDA C++ for Hopper (`csrc/`); every
-other op is plain PyTorch. The port is eval-mode only.
+`models/pointnet2.py`, `train/loop.py`, ...) and its channels-last tensor
+layouts, so each function has a counterpart of the same name there. The
+two Pallas kernels of the JAX package are hand-written CUDA C++ for Hopper
+(`csrc/`); every other op is plain PyTorch. A model trains in torch's
+train mode (`model.train()`); the fused decoder kernel serves eval mode.
 
 Numerics: float32 matrix products and convolutions run in full float32
 (TF32 off), which the parity tests against `rfdnet_tpu` rely on.

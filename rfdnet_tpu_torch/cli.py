@@ -1,12 +1,15 @@
 """CLI entry point: `python -m rfdnet_tpu_torch --config <yaml> --mode
-{test,demo} [--demo_path <scan>] [--device cpu]`.
+{train,test,demo} [--demo_path <scan>] [--device cpu]`.
 
 Counterpart of `rfdnet_tpu/cli.py`: one argparse surface, config load,
 seeding, then mode dispatch. It runs on the current CUDA card unless
-`--device` names another device. `--mode test` evaluates the val split
-(`Tester`: mAP/AR per IoU threshold and per-class voxel IoU, printed as a
-table; the per-scene dumps under `out/test/visualization` with
-`generation.dump_results`). `--mode train` is not ported yet and raises.
+`--device` names another device. `--mode train` trains one stage
+(`train.loop.train`: Adam steps with the plateau LR and BN-momentum
+schedules, freezing, a val pass each epoch) in a new run directory
+`<log.path>/<ISO time>/`, which receives `model_best` and `model_last`.
+`--mode test` evaluates the val split (`Tester`: mAP/AR per IoU threshold
+and per-class voxel IoU, printed as a table; the per-scene dumps under
+`out/test/visualization` with `generation.dump_results`).
 """
 
 from __future__ import annotations
@@ -14,11 +17,9 @@ from __future__ import annotations
 import argparse
 import os
 
-import numpy as np
-import torch
-
 from . import resolve_device
 from .config import build_model, load_config
+from .utils.logging import LogBoard, initiate_environment, make_run_dir
 from .weights import init_seeded, load_npz
 
 
@@ -113,6 +114,28 @@ def run_test(cfg: dict, device=None, log=print, overlap: bool = True):
     return metrics, tester
 
 
+def run_train(cfg: dict, device=None):
+    """Train one stage on `device` (the current CUDA card when None): the
+    model initialised from `seed` with the JAX package's distributions,
+    then resumed or finetuned as the config says, in a new run directory.
+    Returns the `train.loop.Trainer`."""
+    from .train.checkpoint import CheckpointIO
+    from .train.loop import train
+
+    dev = resolve_device(device)
+    save_path, log = make_run_dir(cfg)
+    loaders = _build_loaders(cfg, ["train", "val"])
+    model = init_seeded(build_model(cfg, device=dev, mode="train"),
+                        cfg.get("seed", 10), noise=0.0)
+    board = LogBoard(save_path)
+    try:
+        return train(cfg, model, loaders["train"], loaders["val"],
+                     checkpoint=CheckpointIO(save_path, log=log),
+                     board=board, log=log)
+    finally:
+        board.close()
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         "rfdnet_tpu_torch: RfD-Net in PyTorch on one CUDA card")
@@ -131,13 +154,10 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     cfg = load_config(args.config, mode=args.mode)
-    seed = cfg.get("seed", 10)
-    np.random.seed(seed)
-    torch.manual_seed(seed)
+    initiate_environment(cfg.get("seed", 10))
     print(f"mode: {args.mode}")
     if args.mode == "train":
-        raise NotImplementedError(
-            "--mode train is not ported (ROADMAP.md, 'Training')")
+        return run_train(cfg, device=args.device)
     if args.mode == "test":
         return run_test(cfg, device=args.device)[0]
     from .demo import run as run_demo  # demo imports this module

@@ -332,10 +332,11 @@ def eval_config(cfg: dict = TEST_CONFIG, mode: str | None = None) -> dict:
 
 def build_model(cfg: dict = TEST_CONFIG, generate_limit: int = 64,
                 device=None, mode: str | None = None):
-    """`Config.build_model` for the eval path, on `device` (the current
-    CUDA card when None); the phase is that of the mode's section (`mode`
-    as in `eval_config`). Weights are uninitialised: load them with
-    `weights.from_flax`, `weights.load_npz` or `weights.init_seeded`."""
+    """`Config.build_model` on `device` (the current CUDA card when None),
+    in eval mode and without gradients (a trainer turns both on); the
+    phase is that of the mode's section (`mode` as in `eval_config`).
+    Weights are uninitialised: load them with `weights.from_flax`,
+    `weights.load_npz` or `weights.init_seeded`."""
     from .models.iscnet import ISCNet
 
     dev = resolve_device(device)
@@ -361,5 +362,15 @@ def build_model(cfg: dict = TEST_CONFIG, generate_limit: int = 64,
         generate_limit=generate_limit,
         decoder_bf16=bool(d.get("decoder_bf16")),
         threshold=d["threshold"],
+        completion_limit=d.get("completion_limit_in_train", 10),
     )
     return model.to(dev).eval().requires_grad_(False)
+
+
+def bn_momentum(cfg: dict, epoch: int) -> float:
+    """The BN-momentum schedule (`bnscheduler`):
+    max(init * rate^(epoch // step), momentum_max)."""
+    bs = cfg["bnscheduler"]
+    return max(bs["bn_momentum_init"]
+               * bs["bn_decay_rate"] ** int(epoch / bs["bn_decay_step"]),
+               bs["bn_momentum_max"])

@@ -286,13 +286,12 @@ fps_resident(const float* __restrict__ xyz, int* __restrict__ out_g, int n,
   }
 }
 
+// The kernel's dynamic shared memory and, in a cluster, the non-portable
+// cluster size, set at its first use on each device.
 template <int T, int PPT, bool kCluster, bool kStub>
-cudaError_t launch_resident(const float* xyz, int* out, int b, int n,
-                            int npoint, int cshift, cudaStream_t stream) {
+cudaError_t prepare_resident() {
   auto kernel = fps_resident<T, PPT, kCluster, kStub>;
   constexpr size_t smem = 3 * sizeof(float) * T * PPT;
-  // the kernel's attributes are set at its first launch on each device,
-  // not at every launch
   constexpr int kMaxDevices = 64;
   static bool ready[kMaxDevices] = {};
   int dev = 0;
@@ -311,19 +310,62 @@ cudaError_t launch_resident(const float* xyz, int* out, int b, int n,
     }
     ready[dev] = true;
   }
+  return cudaSuccess;
+}
+
+// The launch configuration of b scenes, one cluster of 2^cshift CTAs each.
+template <int T, int PPT, bool kCluster>
+cudaLaunchConfig_t resident_config(int b, int cshift, cudaStream_t stream,
+                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(b) << cshift);
   cfg.blockDim = dim3(T);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = 3 * sizeof(float) * T * PPT;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1u << cshift;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = kCluster ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, xyz, out, n, npoint, cshift);
+  return cfg;
+}
+
+template <int T, int PPT, bool kCluster, bool kStub>
+cudaError_t launch_resident(const float* xyz, int* out, int b, int n,
+                            int npoint, int cshift, cudaStream_t stream) {
+  cudaError_t err = prepare_resident<T, PPT, kCluster, kStub>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg =
+      resident_config<T, PPT, kCluster>(b, cshift, stream, attr);
+  return cudaLaunchKernelEx(&cfg, fps_resident<T, PPT, kCluster, kStub>,
+                            xyz, out, n, npoint, cshift);
+}
+
+// How many clusters (CTAs without one) of the launch of b scenes the
+// device runs at once: cudaOccupancyMaxActiveClusters, or the resident
+// CTAs a multiprocessor holds times the multiprocessors.
+template <int T, int PPT, bool kCluster, bool kStub>
+cudaError_t active_clusters(int b, int cshift, int* count) {
+  cudaError_t err = prepare_resident<T, PPT, kCluster, kStub>();
+  if (err != cudaSuccess) return err;
+  auto kernel = fps_resident<T, PPT, kCluster, kStub>;
+  if (kCluster) {
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg =
+        resident_config<T, PPT, kCluster>(b, cshift, nullptr, attr);
+    return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, T, 3 * sizeof(float) * T * PPT);
+  *count = per_sm * sms;
+  return err;
 }
 
 // The instantiations that exist, each X(in a cluster, threads, points per
@@ -452,6 +494,24 @@ extern "C" int rfd_fps_resident_launch(const float* xyz, int* out, int b,
   FPS_RESIDENT_SHAPES(FPS_DISPATCH)
   FPS_EXTRA_SHAPES(FPS_DISPATCH)
 #undef FPS_DISPATCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The clusters (CTAs, for cluster 1) of the resident launch of
+// (cluster, threads, ppt, stub) for b scenes that the current device runs
+// at once, in *count; returns the first CUDA error.
+extern "C" int rfd_fps_active_clusters(int b, int cluster, int threads,
+                                       int ppt, int stub, int* count) {
+  int cshift = 0;
+  while ((1 << cshift) < cluster) ++cshift;
+  if (b <= 0 || (1 << cshift) != cluster || cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define FPS_ACTIVE(C, T, P, S)                                              \
+  if ((cluster > 1) == C && threads == T && ppt == P && (stub != 0) == S)   \
+    return static_cast<int>(active_clusters<T, P, C, S>(b, cshift, count));
+  FPS_RESIDENT_SHAPES(FPS_ACTIVE)
+  FPS_EXTRA_SHAPES(FPS_ACTIVE)
+#undef FPS_ACTIVE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -178,7 +178,8 @@ def write_scannet_scenes(root: str, num_scenes: int, seed: int = 0,
                                             class index), shapenet_catid,
                                             shapenet_id, instance_id
         splits/scannetv2_val.json           [{scan, bbox}], paths relative
-                                            to the split's directory
+        splits/scannetv2_train.json         to the split's directory (both
+                                            list every scene)
         shapenet/point/<catid>/<sid>.npz    points (M, 3), packed
                                             occupancies
         shapenet/voxel/16/<catid>/<sid>.binvox
@@ -237,6 +238,8 @@ def write_scannet_scenes(root: str, num_scenes: int, seed: int = 0,
             "scan": os.path.join("..", "scenes", name, "full_scan.npz"),
             "bbox": os.path.join("..", "scenes", name, "bbox.pkl"),
         })
-    with open(os.path.join(split_dir, "scannetv2_val.json"), "w") as f:
-        json.dump(entries, f)
+    for split in ("train", "val"):
+        with open(os.path.join(split_dir, f"scannetv2_{split}.json"),
+                  "w") as f:
+            json.dump(entries, f)
     return {"split": split_dir, "shapenet_path": shapenet}

@@ -1,4 +1,4 @@
-"""Eval-mode torch models of the test-time generation path."""
+"""Torch models of ISCNet, in train and eval mode (torch's module mode)."""
 
 from .backbone import Pointnet2Backbone
 from .common import BatchNorm, Dense, MLPHead, SharedMLP, max_pool_points

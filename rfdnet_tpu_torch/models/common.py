@@ -1,9 +1,10 @@
-"""Common building blocks, channels-last, eval mode.
+"""Common building blocks, channels-last.
 
 Counterpart of `rfdnet_tpu/models/common.py`. Module and parameter names
 follow the flax tree (`dense0`, `bn0`, ...) so that `weights.from_flax`
-is a mechanical rename. BatchNorm uses its running statistics only: the
-port has no training path yet.
+is a mechanical rename. A module's train mode is torch's (`model.train()`
+/ `model.eval()`); the batch norms' momentum is an attribute that
+`set_bn_momentum` sets (the JAX package passes it to every call).
 """
 
 from __future__ import annotations
@@ -24,22 +25,61 @@ class Dense(nn.Linear):
         self.zero_init = zero_init
 
 
-class BatchNorm(nn.Module):
-    """Eval-mode batch norm over the last axis, torch semantics (eps 1e-5),
-    in the JAX package's operation order:
-    (x - mean) * rsqrt(var + eps) * scale + bias."""
+def batch_statistics(x: torch.Tensor, running_mean: torch.Tensor,
+                     running_var: torch.Tensor, momentum: float):
+    """Train-mode statistics of x (..., C) over every leading axis, in f32
+    (f64 for f64 input), as the JAX package computes them: the mean and the
+    mean of squares, var = max(mean_sq - mean^2, 0) (biased, for
+    normalising). The running buffers are updated in place with the
+    unbiased var * n / (n - 1), as new = (1 - m) * old + m * batch.
+    Returns (mean, var)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    dims = tuple(range(x.dim() - 1))
+    mean = xf.mean(dim=dims)
+    mean_sq = torch.square(xf).mean(dim=dims)
+    var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
+    n = x.numel() // x.shape[-1]
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        running_mean.copy_((1.0 - momentum) * running_mean + momentum * mean)
+        running_var.copy_((1.0 - momentum) * running_var
+                          + momentum * unbiased)
+    return mean, var
 
-    def __init__(self, features: int, eps: float = 1e-5):
+
+class BatchNorm(nn.Module):
+    """Batch norm over the last axis, torch semantics (eps 1e-5), in the
+    JAX package's operation order: (x - mean) * rsqrt(var + eps) * scale +
+    bias. Train mode normalises with the batch's statistics
+    (`batch_statistics`) and updates the running ones with `momentum`;
+    eval mode uses the running ones."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        if self.training:
+            mean, var = batch_statistics(x, self.running_mean,
+                                         self.running_var, self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+
+def set_bn_momentum(model: nn.Module, momentum: float) -> None:
+    """Set the momentum of every batch norm of `model` (the BN-momentum
+    schedule's per-epoch value)."""
+    for m in model.modules():
+        if hasattr(m, "momentum") and hasattr(m, "running_mean"):
+            m.momentum = float(momentum)
 
 
 class SharedMLP(nn.Module):
@@ -82,5 +122,6 @@ class MLPHead(nn.Module):
 
 def max_pool_points(x: torch.Tensor, dim: int = 1,
                     keepdim: bool = False) -> torch.Tensor:
-    """Max over the points axis."""
+    """Max over the points axis; its gradient splits evenly among tied
+    maxima, as `jnp.max`'s does."""
     return x.amax(dim=dim, keepdim=keepdim)

@@ -1,11 +1,16 @@
-"""ISCNet: detection + instance completion, the test-time generation path.
+"""ISCNet: detection + instance completion.
 
-Counterpart of `rfdnet_tpu/models/iscnet.py` (`detect`,
-`parse_predictions`, `generate_detections`, `generate_completion` with and
-without GT fields, `generate` with the eval completion loss, the 16^3
-shape voxels and `decode_grid_res`, `decode_occupancy`). Every occupancy
-decode goes through the fused CBN decoder (`ONet.decode_fused`, the CUDA
-kernel on the card). Variable-size results (NMS survivors, completed
+Counterpart of `rfdnet_tpu/models/iscnet.py`: the training forward
+(`forward`: detection, `select_completion_proposals`, `_complete` with the
+ONet loss over the selected proposals) and `loss`, in train or eval mode
+(torch's module mode; submodules named in `frozen` stay in eval mode), and
+the test-time generation path (`detect`, `parse_predictions`,
+`generate_detections`, `generate_completion` with and without GT fields,
+`generate` with the eval completion loss, the 16^3 shape voxels and
+`decode_grid_res`, `decode_occupancy`). Every occupancy decode of eval
+mode goes through the fused CBN decoder (`ONet.decode_fused`, the CUDA
+kernel on the card); train mode decodes layer by layer, with batch
+statistics and autograd. Variable-size results (NMS survivors, completed
 proposals) stay fixed-shape with validity masks, as in the JAX package.
 """
 
@@ -27,6 +32,7 @@ from ..ops import (
     nms_3d,
 )
 from .backbone import Pointnet2Backbone
+from .losses import detection_loss, onet_loss
 from .occnet import ONet, make_3d_grid
 from .proposal import ProposalModule
 from .skip_propagation import SkipPropagation
@@ -42,6 +48,40 @@ def _mark(marks, name: str) -> None:
         marks.append((name, ev))
 
 
+def select_completion_proposals(objectness_probs, center, gt_center,
+                                box_label_mask, sem_cls_label, limit: int):
+    """The proposals to complete in training: ranked by objectness
+    (descending, the lower index first on a tie), the first proposal of
+    each assigned GT box first, in GT id order, then the rest in
+    objectness order, cut to `limit`. A proposal's GT box is the nearest
+    valid GT center (the first on a tie).
+
+    objectness_probs (B, K), center (B, K, 3), gt_center (B, M, 3),
+    box_label_mask (B, M), sem_cls_label (B, M) -> (B, limit, 3) int32
+    [proposal id, GT box id, class id]."""
+    B, K = objectness_probs.shape
+    M = gt_center.shape[1]
+    dev = objectness_probs.device
+    d = torch.sum((center[:, :, None, :] - gt_center[:, None, :, :]) ** 2,
+                  dim=-1)
+    d = torch.where(box_label_mask[:, None, :] > 0, d, torch.inf)
+    assign = torch.argmin(d, dim=-1)
+    order = torch.argsort(-objectness_probs, dim=1, stable=True)
+    sorted_gt = torch.gather(assign, 1, order)
+    pos = torch.arange(K, device=dev).expand(B, K)
+    # the first position of each GT box in objectness order
+    minidx = torch.full((B, M), K, dtype=torch.long, device=dev).scatter_reduce(
+        1, sorted_gt, pos, reduce="amin")
+    is_first = torch.gather(minidx, 1, sorted_gt) == pos
+    key = torch.where(is_first, sorted_gt, M + pos)
+    gt_ids = torch.argsort(key, dim=1, stable=True)[:, :limit]
+    sample_ids = torch.gather(order, 1, gt_ids)
+    gt_box_ids = torch.gather(assign, 1, sample_ids)
+    cls_ids = torch.gather(sem_cls_label.long(), 1, gt_box_ids)
+    return torch.stack([sample_ids, gt_box_ids, cls_ids], dim=-1).to(
+        torch.int32)
+
+
 class ISCNet(nn.Module):
     def __init__(self, num_class: int = 8, num_heading_bin: int = 12,
                  num_size_cluster: int = 8, mean_size_arr=None,
@@ -52,9 +92,19 @@ class ISCNet(nn.Module):
                  c_dim: int = 512, hidden_dim: int = 512, z_dim: int = 32,
                  use_cls_for_completion: bool = False,
                  generate_limit: int = 64, decoder_bf16: bool = False,
-                 threshold: float = 0.5):
+                 threshold: float = 0.5, completion_limit: int = 10,
+                 frozen: tuple = ()):
+        """`completion_limit`: proposals completed per scene in the
+        training forward (`data.completion_limit_in_train`). `frozen`:
+        submodules held in eval mode when the model trains (the reference
+        freezes a module's parameters and switches it to eval; the update
+        mask is the trainer's)."""
         super().__init__()
+        self.num_class = num_class
         self.num_heading_bin = num_heading_bin
+        self.num_size_cluster = num_size_cluster
+        self.completion_limit = completion_limit
+        self.frozen = tuple(frozen)
         self.phase = phase
         self.skip_propagate = skip_propagate
         self.generate_limit = generate_limit
@@ -81,6 +131,13 @@ class ISCNet(nn.Module):
                 num_class=num_class, decoder_bf16=decoder_bf16,
                 threshold=threshold,
             )
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        for name in self.frozen:
+            if hasattr(self, name):
+                getattr(self, name).eval()
+        return self
 
     def detect(self, point_clouds, marks=None, generator=None):
         """backbone -> voting -> proposal. Returns (end_points,
@@ -110,6 +167,91 @@ class ISCNet(nn.Module):
             math.pi / self.num_heading_bin)
         residual = torch.gather(hr, -1, pred_heading_class[..., None])[..., 0]
         return class2angle(pred_heading_class, residual, self.num_heading_bin)
+
+    def _complete(self, end_points, proposal_features, proposal_ids, data,
+                  eps=None, generator=None):
+        """Gather the selected proposals (B, P, 3) [proposal, GT box,
+        class], skip-propagate them with the instance labels of `data`,
+        and compute the ONet loss on their GT boxes' occupancy sets.
+        Returns (features (B, P, c_dim), completion loss, mask loss,
+        16^3 voxels or None (with `data["export_shape"]`)). `eps` /
+        `generator`: the posterior noise of train mode, see
+        `ONet.compute_loss`."""
+        B, P, _ = proposal_ids.shape
+        pids = proposal_ids[..., 0].long()
+        gt_ids = proposal_ids[..., 1].long()
+        sel_features = gather_points(proposal_features, pids)
+        pred_centers = gather_points(end_points["center"], pids)
+        heading_angles = torch.gather(self._heading_angles(end_points), 1,
+                                      pids)
+        if self.skip_propagate:
+            object_input_features, mask_loss = self.skip_propagation(
+                pred_centers, heading_angles, sel_features,
+                data["point_clouds"], data.get("point_instance_labels"),
+                torch.gather(data["object_instance_labels"], 1, gt_ids))
+        else:
+            object_input_features = sel_features
+            mask_loss = torch.zeros((), device=pids.device)
+        T = data["object_points"].shape[2]
+        input_points = torch.gather(
+            data["object_points"], 1,
+            gt_ids[..., None, None].expand(B, P, T, 3))
+        input_occ = torch.gather(data["object_points_occ"], 1,
+                                 gt_ids[..., None].expand(B, P, T))
+        cls_codes = torch.nn.functional.one_hot(
+            proposal_ids[..., 2].long(), self.num_class).float()
+        completion_loss, shape_example = self.completion.compute_loss(
+            object_input_features.reshape(B * P, -1),
+            input_points.reshape(B * P, T, 3), input_occ.reshape(B * P, T),
+            cls_codes.reshape(B * P, -1),
+            export_shape=bool(data.get("export_shape", False)), eps=eps,
+            generator=generator)
+        return object_input_features, completion_loss, mask_loss, shape_example
+
+    def forward(self, data: dict, eps=None, generator=None):
+        """The training forward, in train or eval mode: detection, then in
+        the completion phase the `completion_limit` proposals of
+        `select_completion_proposals` (or `data["pinned_proposal_ids"]`)
+        completed against their GT objects.
+
+        data: point_clouds and the GT fields of `ScanNetDataset`. eps
+        (B * completion_limit, z_dim): the posterior noise of train mode,
+        else drawn from `generator` (which also feeds `random`
+        sampling). Returns (end_points, losses (2,) [completion, mask],
+        16^3 voxels or None, proposal_ids (B, P, 3) or None)."""
+        end_points, proposal_features = self.detect(data["point_clouds"],
+                                                    generator=generator)
+        if self.phase != "completion":
+            zero = torch.zeros((), device=data["point_clouds"].device)
+            return end_points, torch.stack([zero, zero]), None, None
+        if "pinned_proposal_ids" in data:
+            proposal_ids = data["pinned_proposal_ids"]
+        else:
+            proposal_ids = select_completion_proposals(
+                torch.softmax(end_points["objectness_scores"], dim=-1)[..., 1],
+                end_points["center"], data["center_label"][:, :, 0:3],
+                data["box_label_mask"], data["sem_cls_label"],
+                self.completion_limit)
+        _, completion_loss, mask_loss, shape_example = self._complete(
+            end_points, proposal_features, proposal_ids, data, eps=eps,
+            generator=generator)
+        return (end_points, torch.stack([completion_loss, mask_loss]),
+                shape_example, proposal_ids)
+
+    def loss(self, out, data: dict, completion_weight: float = 1.0) -> dict:
+        """The loss terms of `forward`'s output `out` against `data`:
+        `detection_loss`, and in the completion phase the ONet loss
+        weighted by `completion_weight` added to `total`."""
+        end_points, completion_losses = out[:2]
+        total = detection_loss(end_points, data, self.mean_size_arr,
+                               self.num_heading_bin, self.num_size_cluster)
+        if self.phase == "completion":
+            cl = onet_loss(completion_losses[0], completion_losses[1],
+                           completion_weight)
+            total["completion_loss"] = cl["completion_loss"]
+            total["mask_loss"] = cl["mask_loss"]
+            total["total"] = total["total"] + cl["total_loss"]
+        return total
 
     def generate_detections(self, point_clouds, nms_iou=0.25,
                             use_cls_nms=True, remove_empty_box=False,
@@ -269,7 +411,9 @@ class ISCNet(nn.Module):
         `np.packbits` order). With `decode_grid_res`, every selected
         proposal's dense occupancy logit grid (`grids`, (B*G, nx, nx,
         nx)). `marks`: optional list that receives a recorded CUDA event
-        after each stage."""
+        after each stage. Eval mode only."""
+        if self.training:
+            raise RuntimeError("ISCNet.generate runs in eval mode")
         pc = data["point_clouds"]
         _mark(marks, "start")
         end_points, proposal_features, parsed = self.generate_detections(

@@ -1,4 +1,4 @@
-"""ONet-family building blocks, channels-last, eval mode.
+"""ONet-family building blocks, channels-last.
 
 Counterpart of `rfdnet_tpu/models/layers.py`: `ResnetBlockFC`,
 `CBatchNorm`, `_AffinelessBatchNorm`, `CResnetBlockConv1d`,
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .common import Dense, max_pool_points
+from .common import Dense, batch_statistics, max_pool_points
 
 
 class ResnetBlockFC(nn.Module):
@@ -38,17 +38,27 @@ class ResnetBlockFC(nn.Module):
 
 
 class _AffinelessBatchNorm(nn.Module):
-    """Eval-mode batch norm without affine, folded to x * scale + shift."""
+    """Batch norm without affine, folded to x * scale + shift with
+    scale = rsqrt(var + eps) and shift = -mean * scale: the batch's
+    statistics in train mode (updating the running ones with `momentum`,
+    see `common.batch_statistics`), the running ones in eval mode."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        scale = torch.rsqrt(self.running_var + self.eps)
-        return x * scale + (-self.running_mean * scale)
+        if self.training:
+            mean, var = batch_statistics(x, self.running_mean,
+                                         self.running_var, self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = torch.rsqrt(var + self.eps)
+        return x * scale + (-mean * scale)
 
 
 class CBatchNorm(nn.Module):

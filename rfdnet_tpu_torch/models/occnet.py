@@ -1,12 +1,13 @@
-"""Occupancy network (ONet), eval mode.
+"""Occupancy network (ONet): conditional implicit decoder + VAE latent.
 
 Counterpart of `rfdnet_tpu/models/occnet.py`: `make_3d_grid`,
 `ONet._cond`, `decode` (the layer-by-layer chain), `decode_fused`
 (fc_p/fc_z and the CBN fold in torch, the block chain through
 `ops.fused_cbn_decode`, i.e. the CUDA kernel on the card), `infer_z` (the
-VAE posterior encoder) and the eval `compute_loss` with the 16^3 shape
-voxels. Both of `compute_loss`'s decodes go through `decode_fused`. The
-training loss (a sampled z) is not ported yet.
+VAE posterior encoder) and `compute_loss`. In train mode the loss decodes
+a sampled z layer by layer, with batch statistics and autograd; in eval
+mode both of its decodes go through `decode_fused`, which folds the
+running statistics and has no gradient.
 """
 
 from __future__ import annotations
@@ -79,12 +80,16 @@ class ONet(nn.Module):
         return zeros, zeros
 
     def compute_loss(self, input_features, input_points, input_points_occ,
-                     cls_codes, export_shape: bool = False, valid_mask=None):
-        """The eval loss: KL(q(z | points, occ, c) || N(0, I)) summed over
-        z, plus the BCE of the decode at the posterior mean z summed over
-        points, averaged over the objects (weighted by `valid_mask` (Nb,)
-        when given). With `export_shape`, also the (Nb, 16, 16, 16)
-        occupancy voxels at the prior mean z.
+                     cls_codes, export_shape: bool = False, valid_mask=None,
+                     eps=None, generator=None):
+        """KL(q(z | points, occ, c) || N(0, I)) summed over z, plus the BCE
+        of the decode summed over points, averaged over the objects
+        (weighted by `valid_mask` (Nb,) when given). With `export_shape`,
+        also the (Nb, 16, 16, 16) occupancy voxels at the prior mean z.
+
+        Train mode (`self.training`): z = mean + std * eps, eps (Nb, z_dim)
+        given or drawn from `generator`, decoded by `decode`. Eval mode: z
+        is the posterior mean, decoded by `decode_fused`.
 
         input_features (Nb, c_dim), input_points (Nb, T, 3),
         input_points_occ (Nb, T), cls_codes (Nb, num_class) ->
@@ -92,11 +97,19 @@ class ONet(nn.Module):
         c = self._cond(input_features, cls_codes)
         Nb = c.shape[0]
         mean_z, logstd_z = self.infer_z(input_points, input_points_occ, c)
+        # clamped before exp: a drifting logstd would overflow to inf
         logstd_z = torch.clamp(logstd_z, -20.0, 20.0)
         std = torch.exp(logstd_z)
         kl = 0.5 * torch.sum(std ** 2 + mean_z ** 2 - 1.0 - 2.0 * logstd_z,
                              dim=-1)
-        logits = self.decode_fused(input_points, mean_z, c)
+        if self.training:
+            if eps is None:
+                eps = torch.randn(mean_z.shape, generator=generator,
+                                  device=mean_z.device if generator is None
+                                  else generator.device).to(mean_z.device)
+            logits = self.decode(input_points, mean_z + std * eps, c)
+        else:
+            logits = self.decode_fused(input_points, mean_z, c)
         bce = _bce_with_logits(logits, input_points_occ)
         per_obj = kl + torch.sum(bce, dim=-1)
         if valid_mask is not None:
@@ -111,7 +124,9 @@ class ONet(nn.Module):
             p = make_3d_grid([-0.5 + 1 / 32] * 3, [0.5 - 1 / 32] * 3, shape,
                              device=c.device)
             z0 = torch.zeros((Nb, self.z_dim), device=c.device)
-            logits_v = self.decode_fused(p[None].expand(Nb, -1, -1), z0, c)
+            with torch.no_grad():
+                logits_v = self.decode_fused(p[None].expand(Nb, -1, -1), z0,
+                                             c)
             voxels = (torch.sigmoid(logits_v) >= self.threshold).reshape(
                 Nb, *shape)
         return loss, voxels

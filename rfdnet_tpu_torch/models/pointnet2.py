@@ -1,10 +1,11 @@
 """PointNet++ set abstraction / feature propagation and the grouped STN,
-channels-last, eval mode.
+channels-last.
 
 Counterpart of `rfdnet_tpu/models/pointnet2.py`: `SetAbstraction`
 (max pooling), `FeaturePropagation`, `GroupSTN3d`, `STNGroup`. Torch
 layers need their input widths, which flax infers; each constructor takes
-them.
+them. FPS samples a detached copy of the points: no gradient flows
+through the choice of samples, as the JAX package's `stop_gradient`.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ class SetAbstraction(nn.Module):
         """xyz (B, N, 3), features (B, N, C) | None -> (new_xyz (B, np, 3),
         new_features (B, np, mlp[-1]), inds (B, np))."""
         if inds is None:
-            inds = furthest_point_sample(xyz.contiguous(), self.npoint)
+            inds = furthest_point_sample(xyz.detach().contiguous(),
+                                         self.npoint)
         new_xyz = gather_points(xyz, inds)
         idx = ball_query(xyz, new_xyz, self.radius, self.nsample)
         grouped, _ = query_and_group(

@@ -1,5 +1,4 @@
-"""PointNet instance segmentation head (per-point mask), eval forward,
-and its loss.
+"""PointNet instance segmentation head (per-point mask) and its loss.
 
 Counterpart of `rfdnet_tpu/models/pointseg.py`: input STN3d (3x3), feature
 STNkd (64x64), seg head 1088 -> 512 -> 256 -> 128 -> 2 with log-softmax;

@@ -67,7 +67,8 @@ class ProposalModule(nn.Module):
         else:
             if self.sampling == "seed_fps":
                 sample_inds = furthest_point_sample(
-                    end_points["seed_xyz"].contiguous(), self.num_proposal)
+                    end_points["seed_xyz"].detach().contiguous(),
+                    self.num_proposal)
             else:
                 if generator is None:
                     raise ValueError("random sampling requires a generator")

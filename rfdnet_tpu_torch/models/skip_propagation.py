@@ -1,4 +1,4 @@
-"""Skip propagation: box proposal features back to scene points, eval.
+"""Skip propagation: box proposal features back to scene points.
 
 Counterpart of `rfdnet_tpu/models/skip_propagation.py` (`_run`,
 `forward` with instance labels, `generate` without): group 1024 scene
@@ -7,7 +7,7 @@ frame, refine with the grouped STN, predict a per-point instance mask with
 PointSeg, gate [xyz, height, box feature] by the argmax mask and encode
 with ResnetPointnet to c_dim. With instance labels the predicted mask is
 also scored against the proposal's instance (`pointseg_loss`): the mask
-loss the Tester reports.
+loss of training and of the Tester.
 """
 
 from __future__ import annotations

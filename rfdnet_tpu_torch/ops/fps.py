@@ -83,13 +83,22 @@ RESIDENT_ROUTES = tuple(FpsRoute("resident", c, t, p) for c, t, p in (
 ))
 STREAMING_ROUTE = FpsRoute("streaming", 1, 1024, 0)
 RESIDENT_CAPACITY = RESIDENT_ROUTES[-1].capacity
+# Batches of BATCH_MIN scenes or more take, in place of a route, the one
+# it maps to. Chosen from `tools/sweep_fps_routes.py --batch 8` on an
+# NVIDIA H100 80GB HBM3 at 700 W: eight 80000-point scenes take 2.68 ms
+# on clusters of 8 CTAs x 512 threads x 20 points against 3.12 ms on
+# those of 16 x 512 x 10 (2.18 ms for one scene), though the card runs
+# all eight clusters at once on either (15 and 14 at most).
+BATCH_MIN = 8
+BATCH_ROUTES = {FpsRoute("resident", 16, 512, 10):
+                FpsRoute("resident", 8, 512, 20)}
 
 
-def fps_route(n: int) -> FpsRoute:
-    """The route a cloud of n points takes."""
+def fps_route(n: int, b: int = 1) -> FpsRoute:
+    """The route a batch of b clouds of n points takes."""
     for route in RESIDENT_ROUTES:
         if n <= route.capacity:
-            return route
+            return BATCH_ROUTES.get(route, route) if b >= BATCH_MIN else route
     return STREAMING_ROUTE
 
 
@@ -154,8 +163,25 @@ def launch_route(xyz: torch.Tensor, npoint: int, route: FpsRoute,
     return out
 
 
+def active_clusters(route: FpsRoute, b: int, lib=None) -> int:
+    """How many clusters of `route`'s launch for b scenes the current CUDA
+    device runs at once (`cudaOccupancyMaxActiveClusters`; for a route
+    without a cluster, the CTAs it holds at once). Scenes beyond it wait
+    for a later wave."""
+    if route.kind != "resident":
+        raise ValueError(f"active_clusters: {route} has no clusters")
+    lib = lib or _native.load("fps")
+    fn = lib.rfd_fps_active_clusters
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    count = ctypes.c_int(0)
+    _native.check_launch(fn(b, route.cluster, route.threads, route.ppt, 0,
+                            ctypes.byref(count)), f"fps occupancy {route}")
+    return count.value
+
+
 def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    out = launch_route(xyz, npoint, fps_route(xyz.shape[1]))
+    out = launch_route(xyz, npoint, fps_route(xyz.shape[1], xyz.shape[0]))
     furthest_point_sample.launches += 1
     return out
 

@@ -1,7 +1,7 @@
 """Weights for the port: the bridge from `rfdnet_tpu`'s flax variables
 (in memory, or as the flat `.npz` that `tools/export_torch_weights.py`
-writes from a checkpoint of the JAX package), and a seeded init of the
-port's own.
+writes from a checkpoint of the JAX package, and that the port's trainer
+writes too, `flax_flat`), and a seeded init of the port's own.
 
 Module names in the port follow the flax tree, so the bridge is a rename:
 - Dense `kernel` (in, out) -> `weight` (out, in), `bias` -> `bias`;
@@ -56,25 +56,47 @@ def from_flax(variables) -> dict[str, torch.Tensor]:
 
 
 @torch.no_grad()
-def load_npz(model: nn.Module, path: str, log=print) -> nn.Module:
-    """Load a flat `.npz` of flax paths (`params/<module>/.../kernel`,
-    `batch_stats/<module>/.../mean`) into `model`, in place.
+def flax_flat(model: nn.Module) -> dict[str, np.ndarray]:
+    """The inverse of `from_flax`: the model's parameters and running
+    statistics as a flat dict of flax paths (`params/<module>/.../kernel`,
+    `batch_stats/<module>/.../mean`), the layout of `load_npz`."""
+    out = {}
+    inside_cbn = {id(d) for m in model.modules() if isinstance(m, CBatchNorm)
+                  for d in (m.gamma, m.beta)}
 
-    As `rfdnet_tpu.train.checkpoint.partial_load`: a tensor of the model is
-    loaded when the file holds its key with its shape and keeps its value
-    otherwise; the top-level submodules with a tensor left out are reported
-    through `log` ("... subnet missed."), then the ones loaded whole."""
-    tree = {"params": {}, "batch_stats": {}}
-    with np.load(path) as npz:
-        for key in npz.files:
-            parts = key.split("/")
-            if parts[0] not in tree or len(parts) < 3:
-                raise ValueError(f"{path}: unexpected key {key!r}")
-            node = tree
-            for part in parts[:-1]:
-                node = node.setdefault(part, {})
-            node[parts[-1]] = npz[key]
-    source = from_flax(tree)
+    def put(kind, prefix, leaf, t, transpose=False):
+        t = t.detach().cpu()
+        out["/".join((kind, *prefix, leaf))] = (
+            t.T if transpose else t).contiguous().numpy()
+
+    for name, m in model.named_modules():
+        prefix = tuple(name.split(".")) if name else ()
+        if isinstance(m, CBatchNorm):
+            for part in ("gamma", "beta"):
+                dense = getattr(m, part)
+                put("params", prefix, f"{part}_kernel", dense.weight, True)
+                put("params", prefix, f"{part}_bias", dense.bias)
+        elif isinstance(m, Dense) and id(m) not in inside_cbn:
+            put("params", prefix, "kernel", m.weight, True)
+            if m.bias is not None:
+                put("params", prefix, "bias", m.bias)
+        elif isinstance(m, (BatchNorm, _AffinelessBatchNorm)):
+            if isinstance(m, BatchNorm):
+                put("params", prefix, "scale", m.weight)
+                put("params", prefix, "bias", m.bias)
+            put("batch_stats", prefix, "mean", m.running_mean)
+            put("batch_stats", prefix, "var", m.running_var)
+    return out
+
+
+@torch.no_grad()
+def partial_load(model: nn.Module, source: dict, log=print) -> nn.Module:
+    """Load `source` (state_dict keys -> tensors) into `model` in place, as
+    `rfdnet_tpu.train.checkpoint.partial_load`: a tensor of the model is
+    loaded when `source` holds its key with its shape and keeps its value
+    otherwise; the top-level submodules with a tensor left out are
+    reported through `log` ("... subnet missed."), then the ones loaded
+    whole."""
     missed, roots = set(), set()
     for key, t in model.state_dict(keep_vars=True).items():
         root = key.split(".")[0]
@@ -90,12 +112,35 @@ def load_npz(model: nn.Module, path: str, log=print) -> nn.Module:
     return model
 
 
+def read_npz(path: str) -> dict[str, torch.Tensor]:
+    """A flat `.npz` of flax paths as state_dict keys -> tensors."""
+    tree = {"params": {}, "batch_stats": {}}
+    with np.load(path) as npz:
+        for key in npz.files:
+            parts = key.split("/")
+            if parts[0] not in tree or len(parts) < 3:
+                raise ValueError(f"{path}: unexpected key {key!r}")
+            node = tree
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = npz[key]
+    return from_flax(tree)
+
+
+def load_npz(model: nn.Module, path: str, log=print) -> nn.Module:
+    """Load a flat `.npz` of flax paths (`params/<module>/.../kernel`,
+    `batch_stats/<module>/.../mean`) into `model`, in place, with
+    `partial_load`'s report."""
+    return partial_load(model, read_npz(path), log)
+
+
 @torch.no_grad()
 def init_seeded(model: nn.Module, seed: int, noise: float = 0.02) -> nn.Module:
     """Fill `model` in place from `seed`, device-independently: the JAX
     package's init (torch-default U(+-1/sqrt(fan_in)) Dense weights and
     biases, zero kernels where it zero-initialises, identity batch norms and
-    CBN affines), then N(0, noise^2) added to every parameter and buffer.
+    CBN affines), then N(0, noise^2) added to every parameter and buffer
+    (with `noise=0`, the JAX package's init alone: training's start).
     The perturbation matters: at init every fc_1 is zero and every CBN is
     the identity, which would leave the decoder's matmuls untested."""
     g = torch.Generator().manual_seed(seed)
@@ -139,5 +184,6 @@ def _fill(modules, state: dict, g: torch.Generator, noise: float) -> None:
         if isinstance(module, CBatchNorm):
             module.gamma.bias.fill_(1.0)
             module.beta.bias.zero_()
-    for _, t in sorted(state.items()):
-        t.add_(torch.randn(t.shape, generator=g).to(t.device) * noise)
+    if noise:
+        for _, t in sorted(state.items()):
+            t.add_(torch.randn(t.shape, generator=g).to(t.device) * noise)

@@ -68,8 +68,8 @@ def test_route_holds_every_cloud_within_the_sm():
                    | {80000, 300000}
                    | {r.capacity + d for r in tfps.RESIDENT_ROUTES
                       for d in (-1, 0, 1)})
-    for n in sizes:
-        route = tfps.fps_route(n)
+    for n, b in [(n, b) for n in sizes for b in (1, tfps.BATCH_MIN)]:
+        route = tfps.fps_route(n, b)
         assert route.capacity >= n
         if n > tfps.RESIDENT_CAPACITY:
             assert route.kind == "streaming"
@@ -87,6 +87,9 @@ def test_route_holds_every_cloud_within_the_sm():
     for n in MAIN_PATH_SMALL:
         assert tfps.fps_route(n).cluster == 1
     assert tfps.fps_route(80000).cluster > 1
+    # a train step's batch of 8 takes clusters of 8 at 80000 points
+    assert tfps.fps_route(80000, 8) == tfps.FpsRoute("resident", 8, 512, 20)
+    assert tfps.fps_route(80000, 7) == tfps.fps_route(80000)
 
 
 def test_routes_are_ordered_and_instantiated():
@@ -102,6 +105,6 @@ def test_routes_are_ordered_and_instantiated():
               re.findall(r"X\((true|false), (\d+), (\d+), (true|false)\)",
                          macro[:macro.index("\n\n")])}
     routes = {(r.cluster > 1, r.threads, r.ppt, False)
-              for r in tfps.RESIDENT_ROUTES}
+              for r in (*tfps.RESIDENT_ROUTES, *tfps.BATCH_ROUTES.values())}
     stubs = {(c, t, 1, True) for c, t, _, _ in routes}
     assert shapes == routes | stubs

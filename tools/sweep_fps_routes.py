@@ -16,6 +16,10 @@ counts per instantiation, and one JSON line per cloud; with `--out PATH`
 the whole result also goes to PATH as JSON. Any launch error or unequal
 index ends the sweep nonzero.
 
+With `--batch B` every cloud is B scenes (the cloud scaled by 1 + 0.01 b
+for scene b), and each route also reports how many of its clusters the
+card runs at once (`active_clusters`).
+
 Run from the repository root: `python3 tools/sweep_fps_routes.py`.
 """
 
@@ -36,7 +40,8 @@ import chip_smoke  # noqa: E402
 from rfdnet_tpu_torch import config, demo  # noqa: E402
 from rfdnet_tpu_torch.ops import _native  # noqa: E402
 from rfdnet_tpu_torch.ops.fps import (  # noqa: E402
-    RESIDENT_ROUTES, FpsRoute, fps_plain, fps_route, launch_route)
+    RESIDENT_ROUTES, FpsRoute, active_clusters, fps_plain, fps_route,
+    launch_route)
 
 CLUSTERS = (1, 2, 4, 8, 16)
 BLOCKS = (128, 256, 512)
@@ -68,6 +73,12 @@ def build_sweep_library():
     return ctypes.CDLL(str(out)), proc.stdout
 
 
+def batched(pts, b: int):
+    """b scenes of the cloud pts (1, N, 3), scene i scaled by 1 + 0.01 i."""
+    scale = 1 + 0.01 * torch.arange(b, device=pts.device)[:, None, None]
+    return (pts * scale).contiguous()
+
+
 def clouds(dev):
     cfg = config.TEST_CONFIG
     data = demo.load_demo_data(chip_smoke.SCENE,
@@ -92,7 +103,10 @@ def main() -> int:
     print(json.dumps({"ptxas": ptxas}), flush=True)
     result = {"nvidia_smi": smi, "ptxas": ptxas, "clouds": [], "stub": []}
     ok = True
-    all_clouds = clouds(dev)
+    b = int(sys.argv[sys.argv.index("--batch") + 1]) \
+        if "--batch" in sys.argv else 1
+    all_clouds = [(name, batched(pts, b), npoint)
+                  for name, pts, npoint in clouds(dev)]
     for name, pts, npoint in all_clouds:
         n = pts.shape[1]
         want = fps_plain(pts, npoint)
@@ -109,10 +123,13 @@ def main() -> int:
             rows.append(dict(kind=route.kind, cluster=route.cluster,
                              threads=route.threads, ppt=route.ppt,
                              equal=equal, ms=ms,
-                             us_per_step=ms * 1e3 / max(npoint - 1, 1)))
+                             us_per_step=ms * 1e3 / max(npoint - 1, 1),
+                             active_clusters=active_clusters(
+                                 route, b, lib=lib)
+                             if route.kind == "resident" else None))
         rows.sort(key=lambda r: r["ms"])
         chosen = fps_route(n)
-        line = dict(name=name, n=n, npoint=npoint, chosen=str(chosen),
+        line = dict(name=name, b=b, n=n, npoint=npoint, chosen=str(chosen),
                     routes=rows)
         result["clouds"].append(line)
         print(json.dumps(line), flush=True)
