@@ -49,27 +49,51 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    meshes equal (faces equal, vertices within `mesh_comparable`'s
    tolerance) for the proposals whose two grids lie on the same side of
    the iso level everywhere, the others counted.
-7. demo: `rfdnet_tpu_torch.cli.main --mode demo` on the demo scene with a
+7. mise: a copy of `configs/iscnet_test.yaml` with `upsampling_steps: 2`
+   (Occupancy Networks' generation setting: resolution_0 32, two steps,
+   R = 128) and this script's seed, on the demo scene at full width: ten
+   `demo.generate` scenes after a warm-up through the device octree, with
+   scene latency to the meshes, per level the active voxels, decoded
+   points and CBN launches, the octree's device time (CUDA events), the
+   download and host marching cubes times, triangles (every mesh closed);
+   launches FPS 5 and CBN one a level (more where a level decodes in
+   chunks). On one scene: the card's octree against the host octrees
+   (`MiseNative`, and the Python oracle for the active sets) with the same
+   decode on the card, active sets equal and grids within 1e-5 x scale; the
+   sparse replay's meshes identical to dense marching cubes of
+   `reconstruct_dense`; the CBN kernel against its plain version on the
+   operands of each level's decode. A 4096-point scene on the card
+   against the CPU: indices equal, active counts a level equal, meshes
+   equal where `mesh_comparable` allows; with `use_sampling` (one z a
+   proposal, the same draw on both devices) the dense grids within
+   tolerance. Then `cli.main --mode demo` on the copy: its meshes read back
+   and closed, the same launches.
+8. demo: `rfdnet_tpu_torch.cli.main --mode demo` on the demo scene with a
    copy of `configs/iscnet_test.yaml` (its seed set to this script's, at
    which the seeded weights leave valid slots), in a temporary directory;
    the files it wrote are read back.
-8. detection: `configs/iscnet_detection.yaml` (`vote_fps`, no completion)
+9. detection: `configs/iscnet_detection.yaml` (`vote_fps`, no completion)
    at full width, three scenes after a warm-up, with stage times; on 4096
    points the sampling indices and NMS keep mask equal a CPU run's.
-9. tester: three full-width synthetic scenes written in the dataset's
-   on-disk layout (80000 points, 12 objects each) and a copy of
-   `configs/iscnet_test.yaml` pointing at them (seed as in `demo`):
-   `rfdnet_tpu_torch.cli.main --mode test` on the card (metrics and the
-   dumps read back, launches counted: FPS 5 and CBN 3 a scene); the
-   Tester's scene time (`wall_scene_ms`) and stages with a scene in
-   flight and without, in turns; the CBN kernel against its plain
+10. tester: three full-width synthetic scenes written in the dataset's
+   on-disk layout (80000 points, 12 objects each, a watertight GT mesh
+   each) and a copy of `configs/iscnet_test.yaml` pointing at them (seed
+   as in `demo`, `evaluate_mesh_mAP: true`): `rfdnet_tpu_torch.cli.main
+   --mode test` on the card (metrics with `mAP_mesh` and `AR_mesh`, the
+   dumps read back and their meshes closed, launches counted: FPS 5 and
+   CBN 3 a scene); the Tester's scene time (`wall_scene_ms`) and stages
+   without the mesh mAP, with a scene in flight and without, then once
+   with it (its `voxelize` stage and `compute_metrics_ms`); the
+   CBN kernel against its plain
    version at the two decodes this path adds (the completion loss, 2048
    points with the posterior z, and the 16^3 voxels, 4096 points), on the
    operands the path gives it; and one scene at 4096 points on the card
    against the CPU (same weights): NMS mask, proposal and GT ids equal,
    losses within tolerance, voxel bits equal away from the iso level,
-   refit boxes close where both meshes are equal.
-10. train: eight full-width synthetic scenes (80000 points, 12 objects)
+   refit boxes close where both meshes are equal. Then `--mode test` on a
+   copy with `upsampling_steps: 2` (`tester_mise`): the octree on the card
+   at every scene, metrics with the mesh mAP, dumps read back and closed.
+11. train: eight full-width synthetic scenes (80000 points, 12 objects)
    in the dataset's layout, listed in both the train and the val split,
    and a copy of `configs/iscnet.yaml` (stage 3) with `finetune: false`,
    `weight: []`, `epochs: 3` and this script's seed: `rfdnet_tpu_torch.
@@ -168,6 +192,37 @@ def mesh_comparable(a, b, iso: float = 0.0, margin: float = 1e-3):
     if gap < margin:
         return False, None
     return True, 2.0 * float(abs(a - b).max()) / gap
+
+
+def vertex_error_ratio(a, b, grid_a, grid_b, padding: float = 0.1,
+                       iso: float = 0.0) -> float:
+    """For the meshes a and b that marching cubes made from two versions of
+    one proposal's logit grid (numpy, n^3, from two devices) lying on the
+    same side of `iso` everywhere (so their faces are equal): the largest
+    ratio of a vertex's distance between a and b to its tolerance. A
+    vertex sits on a lattice edge at t = (iso - va) / (vb - va) of b's
+    values; when every value moves by at most d (the grids' largest
+    difference), t moves by at most d (|va - iso| + |vb - iso|) /
+    (vb - va)^2 to first order, and the tolerance is twice that (and
+    1e-9 cells). A ratio over 1 fails."""
+    import numpy as np
+
+    n = grid_b.shape[0]
+    box = 1.0 + padding
+    cell = box / (n - 1)
+    d = float(np.abs(grid_a - grid_b).max())
+    padded = np.pad(grid_b.astype(np.float64), 1, constant_values=-1e6)
+    idx = (b.vertices + box / 2) / cell + 1.0  # padded index space
+    near = np.round(idx)
+    on_axis = np.abs(idx - near) > 1e-9  # the edge's axis
+    lo = np.where(on_axis, np.floor(idx), near).astype(np.int64)
+    hi = lo + on_axis
+    va = padded[lo[:, 0], lo[:, 1], lo[:, 2]] - iso
+    vb = padded[hi[:, 0], hi[:, 1], hi[:, 2]] - iso
+    gap = np.where(on_axis.any(1), np.abs(vb - va), np.inf)
+    tol = (2 * d * (np.abs(va) + np.abs(vb)) / gap ** 2 + 1e-9) * cell
+    dist = np.abs(a.vertices - b.vertices).max(axis=1)
+    return float((dist / tol).max()) if len(dist) else 0.0
 
 
 def nvidia_smi() -> str:
@@ -385,10 +440,11 @@ def decoder_operands(model, nb: int, res: int, dev):
         return onet.fused_operands(pts[None].expand(nb, -1, -1), z, c)
 
 
-def cbn_row(ops, dtype=torch.float32, reps: int = 3) -> dict:
+def cbn_row(ops, dtype=torch.float32, reps: int = 3, points=None) -> dict:
     """The CBN kernel against its plain version on `ops` (the operands of
     `fused_cbn_decode`) in one operand type: error, tolerance, times of
-    the kernel, the plain version and the cuBLAS chain, and the bound.
+    the kernel, the plain version and the cuBLAS chain, and the bound, of
+    `points` points (the real ones of a padded decode; all when None).
     f32: the same math, sums of 256 products in another order chained
     through 10 layers. bf16: the kernel and the plain version round at the
     same points, so they differ only where an f32 sum in another order
@@ -398,15 +454,16 @@ def cbn_row(ops, dtype=torch.float32, reps: int = 3) -> dict:
     from rfdnet_tpu_torch.ops.cbn_decoder import cbn_decode_plain, fused_cbn_decode
 
     nb, T = ops[0].shape[0], ops[0].shape[1]
+    points = nb * T if points is None else points
     k = fused_cbn_decode(*ops, mxu_dtype=dtype)
     p = cbn_decode_plain(*ops, mxu_dtype=dtype)
     torch.cuda.synchronize()
     scale = max(float(p.abs().max()), 1.0)
-    b, by = bound_ms(nb * T * 256 * 4 + nb * T * 4,
-                     2.0 * nb * T * 10 * 256 * 256,
+    b, by = bound_ms(points * 256 * 4 + points * 4,
+                     2.0 * points * 10 * 256 * 256,
                      F32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
     return dict(
-        nb=nb, t=T, out=k, max_abs_err=float((k - p).abs().max()),
+        nb=nb, t=T, points=points, out=k, max_abs_err=float((k - p).abs().max()),
         tol=(1e-4 if dtype == torch.float32 else 1e-3) * scale, scale=scale,
         ms=cuda_ms(lambda: fused_cbn_decode(*ops, mxu_dtype=dtype), reps),
         plain_ms=cuda_ms(lambda: cbn_decode_plain(*ops, mxu_dtype=dtype), 1),
@@ -715,6 +772,315 @@ def phase_reference(model, cfg, num_points: int = 4096):
     return errs
 
 
+MISE_STEPS = 2  # Occupancy Networks' generation setting (resolution_0 32)
+
+
+def mise_config(tmp: str, pairs=()) -> str:
+    """A copy of the test config with `upsampling_steps: 2` and this
+    script's seed (and `pairs`, each (old, new) once), under `tmp`."""
+    return config_copy(TEST_YAML, os.path.join(tmp, "iscnet_mise.yaml"), [
+        ("\nseed: 10\n", f"\nseed: {SEED}\n", 1),
+        ("upsampling_steps: 0", f"upsampling_steps: {MISE_STEPS}", 1),
+        *((old, new, 1) for old, new in pairs)])
+
+
+def closed_meshes(meshes) -> int:
+    """Edges, over `meshes`, that are not shared by exactly two faces."""
+    import numpy as np
+
+    open_edges = 0
+    for m in meshes:
+        if len(m.faces) == 0:
+            continue
+        f = np.asarray(m.faces, np.int64)
+        edges = np.sort(np.concatenate(
+            [f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+        _, counts = np.unique(edges[:, 0] * len(m.vertices) + edges[:, 1],
+                              return_counts=True)
+        open_edges += int((counts != 2).sum())
+    return open_edges
+
+
+def octree_active_sets(out, nb: int, steps: int):
+    """{(proposal, level): sorted active voxel ids} of a `MiseOutput`."""
+    import numpy as np
+
+    counts = out.level_counts.cpu().numpy()
+    idx = out.idx.cpu().numpy()
+    sets, k = {}, 0
+    for i in range(nb):
+        for l in range(steps):
+            sets[i, l] = idx[k:k + counts[i, l]].tolist()
+            k += counts[i, l]
+    return sets
+
+
+def oracle_active_sets(trees, res0: int, steps: int):
+    """The same of the Python `MISE` oracles' values (NaN where unknown):
+    each level's mixed-sign voxels with 8 known corners."""
+    import numpy as np
+
+    sets = {}
+    for i, tree in enumerate(trees):
+        for l in range(steps):
+            s, n = 2 ** (steps - l), res0 * 2 ** l
+            v = tree.values[::s, ::s, ::s]
+            occ = sum((np.nan_to_num(v[dx:n + dx, dy:n + dy, dz:n + dz],
+                                     nan=-np.inf) >= tree.threshold)
+                      .astype(int) for dx in (0, 1) for dy in (0, 1)
+                      for dz in (0, 1))
+            known = sum((~np.isnan(v[dx:n + dx, dy:n + dy, dz:n + dz]))
+                        .astype(int) for dx in (0, 1) for dy in (0, 1)
+                        for dz in (0, 1))
+            act = (occ > 0) & (occ < 8) & (known == 8)
+            sets[i, l] = np.flatnonzero(act.reshape(-1)).tolist()
+    return sets
+
+
+def host_octrees(generator, features, cls_codes, oracle: bool):
+    """The host route's grids (`Generator3D.mise_grids`, decodes on the
+    card) with the C++ octrees, or with the Python oracles, returned too."""
+    from rfdnet_tpu_torch.meshing import mise
+
+    if not oracle:
+        return generator.mise_grids(features, cls_codes), None
+    trees, make = [], mise._make_tree
+    mise._make_tree = lambda *a: trees.append(mise.MISE(*a)) or trees[-1]
+    try:
+        return generator.mise_grids(features, cls_codes), trees
+    finally:
+        mise._make_tree = make
+
+
+def mise_reference(cfg, model, num_points: int = 4096) -> dict:
+    """A 4096-point scene on the card against the CPU (same weights):
+    sampling indices, proposals and valid flags equal, the octrees' active
+    counts a level equal, meshes equal where `mesh_comparable` allows; and
+    with `use_sampling` (one z a proposal from `ISCNet.sample_z`, the same
+    draw on both devices) the dense grids within atol 1e-4 x max(scale,
+    1), rtol 1e-3, away from the prior-mean grids."""
+    import copy
+
+    import numpy as np
+
+    from rfdnet_tpu_torch import demo
+    from rfdnet_tpu_torch.meshing.mise_device import reconstruct_dense
+
+    dev = next(model.parameters()).device
+    pc = demo.load_demo_data(SCENE, num_points=num_points,
+                             device=dev)["point_clouds"]
+    cpu_model = copy.deepcopy(model).to("cpu")
+    runs = {name: demo.generate_grids(cfg, m, x)
+            for name, m, x in (("card", model, pc),
+                               ("cpu", cpu_model, pc.cpu()))}
+    (ep, parsed, gen, out), (ep_c, parsed_c, gen_c, out_c) = (
+        runs["card"], runs["cpu"])
+    for k in ("sa1_inds", "sa2_inds", "fp2_inds", "aggregated_vote_inds"):
+        check(torch.equal(ep[k].cpu(), ep_c[k]), f"mise reference: {k}")
+    for k in ("proposal_ids", "valid"):
+        check(torch.equal(gen[k].cpu(), gen_c[k]), f"mise reference: {k}")
+    counts = [[lv["active"] for lv in o.levels[1:]] for o in (out, out_c)]
+    check(counts[0] == counts[1],
+          f"mise reference: active voxels a level {counts}")
+    res0 = cfg["generation"]["resolution_0"]
+    grids = [reconstruct_dense(o.lvl0, o.idx, o.vals, o.level_counts, res0,
+                               MISE_STEPS).cpu().numpy() for o in (out, out_c)]
+    generator = demo.make_generator(cfg, cpu_model)
+    valid = gen_c["valid"].reshape(-1).numpy()
+    meshes = [generator.meshes_from({k: getattr(o, k).cpu().numpy() for k in (
+        "lvl0", "idx", "vals", "level_counts")}, valid=valid)
+        for o in (out, out_c)]
+    # at R = 128 a crossing edge with a small value difference is in every
+    # grid, so `mesh_comparable`'s margin would leave every mesh out: the
+    # vertices are held to a tolerance of their own edge
+    compared = left_out = 0
+    worst = 0.0
+    for g in np.flatnonzero(valid):
+        if ((grids[0][g] > 0) != (grids[1][g] > 0)).any():
+            left_out += 1
+            continue
+        compared += 1
+        a, b = meshes[0][g], meshes[1][g]
+        check(np.array_equal(a.faces, b.faces),
+              f"mise reference: faces of slot {g}")
+        worst = max(worst, vertex_error_ratio(a, b, grids[0][g],
+                                              grids[1][g]))
+    check(compared > 0 and worst <= 1.0,
+          f"mise reference: {compared} meshes compared, vertices at "
+          f"{worst} of their tolerance")
+    # the sampled z, on the dense route
+    sampled = copy.deepcopy(cfg)
+    sampled["generation"].update(upsampling_steps=0, use_sampling=True)
+    prior = copy.deepcopy(sampled)
+    prior["generation"]["use_sampling"] = False
+    sg = [demo.generate_grids(sampled, m, x)
+          for m, x in ((model, pc), (cpu_model, pc.cpu()))]
+    check(torch.equal(sg[0][2]["proposal_ids"].cpu(), sg[1][2]["proposal_ids"])
+          and torch.equal(sg[0][2]["valid"].cpu(), sg[1][2]["valid"]),
+          "mise reference: sampled z, proposals differ")
+    got, want = sg[0][3].cpu().double(), sg[1][3].double()
+    scale = max(float(want.abs().max()), 1.0)
+    sample_err = float((got - want).abs().max())
+    check(bool(((got - want).abs() <= 1e-4 * scale + 1e-3 * want.abs())
+               .all()), f"mise reference: sampled grids differ by "
+          f"{sample_err}")
+    off_prior = float((demo.generate_grids(prior, cpu_model, pc.cpu())[3]
+                       .double() - want).abs().max())
+    check(off_prior > 1e-3 * scale, "mise reference: the sampled z moved "
+          f"the grids by only {off_prior}")
+    return dict(points=num_points, valid=int(valid.sum()),
+                active=counts[0], meshes_compared=compared,
+                meshes_left_out_near_iso=left_out,
+                vertex_err_of_tolerance=worst,
+                grid_err=float(max(np.abs(grids[0][g] - grids[1][g]).max()
+                                   for g in np.flatnonzero(valid))),
+                sampled_grid_err=sample_err, sampled_off_prior=off_prior)
+
+
+def phase_mise(model, data, scenes: int = 10, reps: int = 3):
+    """MISE at full width (see the module docstring). Returns (launches
+    of one scene, the CBN kernel's rows at the level shapes)."""
+    import numpy as np
+
+    import rfdnet_tpu_torch.models.occnet as occnet
+    from rfdnet_tpu_torch import cli, config, demo
+    from rfdnet_tpu_torch.meshing.mesh import TriMesh
+    from rfdnet_tpu_torch.meshing.mise_device import reconstruct_dense
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = mise_config(tmp)
+        cfg = config.load_config(cfg_path, mode="demo")
+        res0 = cfg["generation"]["resolution_0"]
+        generator = demo.make_generator(cfg, model)
+        host_runs = []
+
+        def scene(marks):
+            host_runs.append({})
+            out = demo.generate(cfg, model, data, generator=generator,
+                                marks=marks, host_ms=host_runs[-1])
+            host_runs[-1]["levels"] = generator.octree_levels
+            return out
+
+        run = timed_scenes(scene, scenes)
+        parsed, gen, meshes = run.pop("first")
+        host_runs = host_runs[1:]  # without the warm-up
+        levels = host_runs[0]["levels"]
+        level_launches = sum(lv["launches"] for lv in levels)
+        # the octree once more, its decodes captured: the card's octree
+        # against the host's, the replay against dense marching cubes
+        captured, launch = [], occnet.fused_cbn_decode
+
+        def capture(*ops, **kw):
+            captured.append(ops)
+            return launch(*ops, **kw)
+
+        occnet.fused_cbn_decode = capture
+        try:
+            _, _, out, octree = demo.generate_grids(cfg, model,
+                                                    data["point_clouds"])
+        finally:
+            occnet.fused_cbn_decode = launch
+        feats, codes = out["features"], out["cls_codes"]
+        valid = out["valid"].reshape(-1)
+        dense = reconstruct_dense(octree.lvl0, octree.idx, octree.vals,
+                                  octree.level_counts, res0,
+                                  MISE_STEPS).cpu().numpy()
+        host = {k: getattr(octree, k).cpu().numpy()
+                for k in ("lvl0", "idx", "vals", "level_counts")}
+        v_np = valid.cpu().numpy()
+        replay = generator.meshes_from(host, valid=v_np)
+        replay_identical = meshes_equal(
+            replay, generator.meshes_from_grids(dense, valid=v_np))
+        device_sets = octree_active_sets(octree, len(v_np), MISE_STEPS)
+        del octree
+        host_gen = demo.make_generator(cfg, model, mise_impl="host")
+        t0 = time.perf_counter()
+        host_grids, _ = host_octrees(host_gen, feats, codes, oracle=False)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        oracle_grids, trees = host_octrees(host_gen, feats, codes,
+                                           oracle=True)
+        oracle_sets = oracle_active_sets(trees, res0, MISE_STEPS)
+        del trees
+        vg = np.flatnonzero(v_np)
+        grid_err = float(np.abs(dense[vg] - host_grids[vg]).max())
+        sets_equal = all(device_sets[g, l] == oracle_sets[g, l]
+                         for g in vg for l in range(MISE_STEPS))
+        # the decoder at each level's shape
+        check(len(captured) == level_launches,
+              f"mise: {len(captured)} decodes captured, {levels}")
+        cbn, n = {}, 0
+        for level, lv in enumerate(levels):
+            for chunk in range(lv["launches"]):
+                # the real points of a one-launch level; else the padded
+                row = cbn[f"level{level}_{chunk}"] = cbn_row(
+                    captured[n], reps=reps,
+                    points=lv["points"] if lv["launches"] == 1 else None)
+                row.pop("out")
+                row.update(level=level, launches=1)
+                n += 1
+                check(row["max_abs_err"] <= row["tol"],
+                      f"mise: cbn_decode at level {level}: kernel vs plain "
+                      f"max err {row['max_abs_err']} > {row['tol']}")
+        del captured
+        torch.cuda.empty_cache()
+        triangles = sum(len(m.faces) for m in meshes)
+        emit(phase="mise", resolution_0=res0, upsampling_steps=MISE_STEPS,
+             points=int(data["point_clouds"].shape[1]),
+             valid=int(gen["valid"].sum()), scenes=scenes,
+             wall_mesh_ms=run["wall_ms"], wall_mesh_ms_min=run["wall_ms_min"],
+             wall_mesh_ms_max=run["wall_ms_max"], stage_ms=run["stage_ms"],
+             download_ms=spread([r["d2h"] for r in host_runs]),
+             host_mc_ms=spread([r["mesh"] for r in host_runs]),
+             levels=levels, launches=run["launches"], triangles=triangles,
+             open_edges=closed_meshes(meshes),
+             replay_identical=replay_identical,
+             host_octree_ms=host_ms, host_grid_err=grid_err,
+             oracle_grids_identical=bool(np.array_equal(oracle_grids[vg],
+                                                        host_grids[vg])),
+             active_sets_equal=sets_equal, cbn_decode=cbn)
+        check(run["launches"] == {"fps": 5, "cbn_decode": level_launches},
+              f"mise: launches {run['launches']}, levels {levels}")
+        check(all(lv["launches"] >= 1 for lv in levels),
+              f"mise: a level without a decode: {levels}")
+        check(triangles > 0 and closed_meshes(meshes) == 0,
+              "mise: meshes empty or not closed")
+        check(replay_identical,
+              "mise: the sparse replay differs from dense marching cubes")
+        check(sets_equal, "mise: active sets of the card's octree differ "
+              "from the host's")
+        check(grid_err <= 1e-5 * max(float(np.abs(host_grids[vg]).max()),
+                                     1.0),
+              f"mise: the card's grids differ from the host's by {grid_err}")
+        check(np.array_equal(oracle_grids[vg], host_grids[vg]),
+              "mise: the Python and C++ octrees differ")
+        emit(phase="mise_reference", **mise_reference(cfg, model))
+        # the CLI in demo mode on the copy
+        os.chdir(tmp)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            out_dir = os.path.abspath(cli.main([
+                "--config", cfg_path, "--mode", "demo",
+                "--demo_path", SCENE]))
+            torch.cuda.synchronize()
+            demo_s = time.perf_counter() - t0
+            demo_launches = read_launches()
+            plys = [TriMesh.load(os.path.join(out_dir, f))
+                    for f in sorted(os.listdir(out_dir))
+                    if f.startswith("proposal_")]
+        finally:
+            os.chdir(cwd)
+    emit(phase="mise_demo", cli_s=demo_s, launches=demo_launches,
+         mesh_files=len(plys), open_edges=closed_meshes(plys),
+         triangles=sum(len(m.faces) for m in plys))
+    check(len(plys) > 0 and closed_meshes(plys) == 0,
+          "mise: the CLI demo's meshes missing or not closed")
+    check(demo_launches == run["launches"],
+          f"mise: launches of the CLI demo {demo_launches}")
+    return run["launches"], cbn
+
+
 def phase_demo():
     """The CLI in demo mode at full width, in a temporary directory: the
     files of `demo.save_visualization`, read back."""
@@ -829,27 +1195,18 @@ def phase_detection(dev, scenes: int = 3, num_points: int = 4096):
 TESTER_SCENES = 3
 
 
-def tester_config(tmp: str) -> str:
-    """Three full-width synthetic scenes in the dataset's on-disk layout
-    under `tmp`, and a copy of the test config that reads them, with this
-    script's seed. Returns the copy's path."""
-    from rfdnet_tpu_torch.data.synthetic import write_scannet_scenes
-
-    paths = write_scannet_scenes(os.path.join(tmp, "data"), TESTER_SCENES,
-                                 seed=SEED, num_points=80000, num_objects=12)
-    with open(TEST_YAML) as f:
-        text = f.read()
-    for old, new in (("\nseed: 10\n", f"\nseed: {SEED}\n"),
-                     ("split: datasets/splits/fullscan",
-                      f"split: {paths['split']}"),
-                     ("shapenet_path: datasets/ShapeNetv2_data",
-                      f"shapenet_path: {paths['shapenet_path']}")):
-        check(text.count(old) == 1, f"tester: the config's line {old!r}")
-        text = text.replace(old, new)
-    path = os.path.join(tmp, "iscnet_test.yaml")
-    with open(path, "w") as f:
-        f.write(text)
-    return path
+def tester_config(tmp: str, paths: dict, name: str, pairs=()) -> str:
+    """A copy of the test config under `tmp` that reads the scenes of
+    `paths`, with this script's seed, the mesh mAP on, and `pairs` (each
+    (old, new) once). Returns the copy's path."""
+    return config_copy(TEST_YAML, os.path.join(tmp, name), [
+        (old, new, 1) for old, new in (
+            ("\nseed: 10\n", f"\nseed: {SEED}\n"),
+            ("split: datasets/splits/fullscan", f"split: {paths['split']}"),
+            ("shapenet_path: datasets/ShapeNetv2_data",
+             f"shapenet_path: {paths['shapenet_path']}"),
+            ("evaluate_mesh_mAP: false", "evaluate_mesh_mAP: true"),
+            *pairs)])
 
 
 def read_test_dumps(root: str, points: int, objects: int) -> dict:
@@ -882,6 +1239,33 @@ def read_test_dumps(root: str, points: int, objects: int) -> dict:
     check(mesh_files > 0, "tester: no mesh written")
     return dict(scenes=len(scenes), mesh_files=mesh_files,
                 triangles=triangles)
+
+
+def cli_test(cfg_path: str, cwd: str):
+    """`cli.main --mode test` on `cfg_path` in `cwd`: (metrics, seconds,
+    launches, the dumps read back, open edges of the dumped meshes)."""
+    from rfdnet_tpu_torch import cli, config
+    from rfdnet_tpu_torch.meshing.mesh import TriMesh
+
+    here = os.getcwd()
+    os.makedirs(cwd, exist_ok=True)
+    os.chdir(cwd)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = cli.main(["--config", cfg_path, "--mode", "test"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        os.chdir(here)
+    root = os.path.join(cwd, "out", "test", "visualization")
+    points = config.load_config(cfg_path, mode="test")["data"]["num_point"]
+    dumps = read_test_dumps(root, points, 12)
+    dumps["open_edges"] = closed_meshes(
+        TriMesh.load(os.path.join(d, f)) for d, _, files in os.walk(root)
+        for f in files if f.startswith("proposal_"))
+    return metrics, seconds, launches, dumps
 
 
 def tester_reference(cfg, model, num_points: int = 4096) -> None:
@@ -995,46 +1379,48 @@ def tester_reference(cfg, model, num_points: int = 4096) -> None:
 def phase_tester(dev, reps: int = 3):
     """The test path (see the module docstring). Returns (launches of one
     scene, the CBN kernel's rows at the two new shapes)."""
+    import copy
+
     import numpy as np
 
     import rfdnet_tpu_torch.models.occnet as occnet
     from rfdnet_tpu_torch import cli, config
+    from rfdnet_tpu_torch.data.synthetic import write_scannet_scenes
     from rfdnet_tpu_torch.eval.tester import Tester
 
-    cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
-        cfg_path = tester_config(tmp)
-        os.chdir(tmp)
-        try:
-            reset_launches()
-            t0 = time.perf_counter()
-            metrics = cli.main(["--config", cfg_path, "--mode", "test"])
-            torch.cuda.synchronize()
-            cli_s = time.perf_counter() - t0
-            launches = read_launches()
-        finally:
-            os.chdir(cwd)
+        paths = write_scannet_scenes(os.path.join(tmp, "data"),
+                                     TESTER_SCENES, seed=SEED,
+                                     num_points=80000, num_objects=12)
+        cfg_path = tester_config(tmp, paths, "iscnet_test.yaml")
+        metrics, cli_s, launches, dumps = cli_test(cfg_path,
+                                                   os.path.join(tmp, "run"))
         cfg = config.load_config(cfg_path, mode="test")
         points = cfg["data"]["num_point"]
-        dumps = read_test_dumps(
-            os.path.join(tmp, "out", "test", "visualization"), points, 12)
         model = cli.restore_weights(cfg, config.build_model(cfg, device=dev),
                                     log=lambda m: None)
-        tester = Tester(cfg, model, log=lambda m: None)
+        # the timed runs without the mesh mAP, as before it was ported
+        plain = copy.deepcopy(cfg)
+        plain["test"]["evaluate_mesh_mAP"] = False
+        tester = Tester(plain, model, log=lambda m: None)
         loader = lambda: cli._build_loaders(cfg, ["test"])["test"]
-        # the scene time in turns, a scene in flight and not (no dumps)
+        # the scene time with a scene in flight and without (no dumps),
+        # then once with the mesh mAP
         runs = []
-        for overlap in (True, False, True, False):
-            got = tester.run(loader(), overlap=overlap)
+        for overlap, t in ((True, tester), (False, tester),
+                           (True, Tester(cfg, model, log=lambda m: None))):
+            got = t.run(loader(), overlap=overlap)
             runs.append(dict(
-                overlap=overlap,
-                wall_scene_ms=tester.run_ms / TESTER_SCENES,
-                stage_ms={k: spread([ms[k] for ms in tester.scene_ms])
-                          for k in tester.scene_ms[0]},
-                compute_metrics_ms=tester.metrics_ms,
-                refit_sizes=tester.refit_sizes,
+                overlap=overlap, mesh_map=t.evaluate_mesh_mAP,
+                wall_scene_ms=t.run_ms / TESTER_SCENES,
+                stage_ms={k: spread([ms[k] for ms in t.scene_ms])
+                          for k in t.scene_ms[0]},
+                compute_metrics_ms=t.metrics_ms,
+                refit_sizes=t.refit_sizes,
                 metrics_max_diff=max(abs(got[k] - metrics[k])
-                                     for k in metrics)))
+                                     for k in got if k in metrics)))
+            check(t.evaluate_mesh_mAP == ("mAP_mesh @0.5" in got),
+                  f"tester: metrics of a run {sorted(got)}")
         # the decodes of one scene, on the operands the path gives them
         captured, launch = [], occnet.fused_cbn_decode
 
@@ -1068,12 +1454,31 @@ def phase_tester(dev, reps: int = 3):
                  k: v for k, v in metrics.items()
                  if k.startswith(("mAP", "AR")) or "voxel IoU" in k},
              runs=runs, cbn_decode=cbn)
-        tester_reference(cfg, model)
+        tester_reference(plain, model)
+        # the test path with MISE (and the mesh mAP)
+        mise_path = tester_config(tmp, paths, "iscnet_test_mise.yaml", [
+            ("upsampling_steps: 0", f"upsampling_steps: {MISE_STEPS}")])
+        mise_metrics, mise_s, mise_launches, mise_dumps = cli_test(
+            mise_path, os.path.join(tmp, "mise"))
+        emit(phase="tester_mise", scenes=TESTER_SCENES, cli_s=mise_s,
+             launches=mise_launches, dumps=mise_dumps, metrics={
+                 k: v for k, v in mise_metrics.items()
+                 if k.startswith(("mAP", "AR")) or "voxel IoU" in k})
+    check(mise_launches["fps"] == 5 * TESTER_SCENES
+          and mise_launches["cbn_decode"]
+          >= (3 + MISE_STEPS) * TESTER_SCENES,
+          f"kernel launches of the test path with MISE: {mise_launches}")
+    check(mise_dumps["open_edges"] == 0 and dumps["open_edges"] == 0,
+          "tester: dumped meshes not closed")
+    check(all(np.isfinite(v) for v in mise_metrics.values())
+          and "mAP_mesh @0.5" in mise_metrics,
+          f"tester: MISE metrics {sorted(mise_metrics)}")
     check(launches == {"fps": 5 * TESTER_SCENES,
                        "cbn_decode": 3 * TESTER_SCENES},
           f"kernel launches of the test path: {launches}")
     check(all(np.isfinite(v) for v in metrics.values())
           and "mAP @0.5" in metrics and "AR @0.5" in metrics
+          and "mAP_mesh @0.5" in metrics and "AR_mesh @0.5" in metrics
           and any(k.endswith("voxel IoU") for k in metrics),
           f"tester: metrics {sorted(metrics)}")
     return per_scene, cbn
@@ -1375,7 +1780,8 @@ def val_decode_row(trainer, cfg_path: str) -> dict:
     return row
 
 
-def kernel_summary(fps_rows, fps_batch, cbn_rows, launches, test_cbn):
+def kernel_summary(fps_rows, fps_batch, cbn_rows, launches, test_cbn,
+                   mise_cbn):
     """One entry per kernel. `launches` and the times are the main path's
     (to the grids): FPS summed over its five calls there, the CBN decoder
     in the test config's f32 mode; `launches_by_path` has every driven
@@ -1384,7 +1790,9 @@ def kernel_summary(fps_rows, fps_batch, cbn_rows, launches, test_cbn):
     detection path (SA1-4 and vote_fps), the FPS entry's `train_batch`
     its five calls of a train step at batch 8, and the CBN entry's
     `test_shapes` the kernel at the test path's two other decodes and at
-    the val step's (`train_val_t2048`, 80 proposals)."""
+    the val step's (`train_val_t2048`, 80 proposals), and `mise_shapes` at
+    each level of a MISE scene's octree (`launches` a scene, `points` the
+    real points the bound counts)."""
     f32 = cbn_rows["float32"]
     main = [r for r in fps_rows if r["name"] != "vote_fps"]
     detection = [r for r in fps_rows if r["name"] != "seed_fps"]
@@ -1422,7 +1830,11 @@ def kernel_summary(fps_rows, fps_batch, cbn_rows, launches, test_cbn):
              bound_by=f32["bound_by"], library_ms=f32["library_ms"],
              test_shapes={name: {k: row[k] for k in (
                  "nb", "t", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                 "bound_by", "library_ms")} for name, row in test_cbn.items()}),
+                 "bound_by", "library_ms")} for name, row in test_cbn.items()},
+             mise_shapes={name: {k: row[k] for k in (
+                 "level", "nb", "t", "points", "launches", "max_abs_err",
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                 for name, row in mise_cbn.items()}),
     ]
 
 
@@ -1439,26 +1851,44 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_device()
+    seconds, t0 = {}, time.perf_counter()
 
+    def done(name):  # the host-clock seconds of each phase
+        nonlocal t0
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+
+    phase_device()
+    done("device")
     cfg, data, model = slice_setup(dev)
     with torch.no_grad():
         votes = model.detect(data["point_clouds"])[0]["vote_xyz"].contiguous()
     fps_rows, fps_batch = phase_fps(data["point_clouds"][..., :3].contiguous(),
                                     votes)
+    done("fps")
     cbn_rows = phase_cbn(model, dev)
     torch.cuda.empty_cache()
+    done("cbn_decode")
     launches, grids, valid, meshes = phase_slice(model, data, cfg)
     phase_mesh(model, cfg, grids, valid, meshes)
     phase_reference(model, cfg)
+    done("slice_mesh_reference")
+    launches["mise"], mise_cbn = phase_mise(model, data)
+    torch.cuda.empty_cache()
+    done("mise")
     launches["demo"] = phase_demo()
     launches["detection"] = phase_detection(dev)
+    done("demo_detection")
     launches["test"], test_cbn = phase_tester(dev)
+    done("tester")
     launches["train"], launches["train_val"], train_cbn = phase_train(dev)
     test_cbn["train_val_t2048"] = train_cbn
+    done("train")
+    emit(phase="timing", seconds=seconds, total_s=sum(seconds.values()))
 
     print(json.dumps({"kernels": kernel_summary(fps_rows, fps_batch, cbn_rows,
-                                                launches, test_cbn)}),
+                                                launches, test_cbn,
+                                                mise_cbn)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

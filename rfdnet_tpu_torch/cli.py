@@ -73,7 +73,8 @@ def _build_loaders(cfg: dict, modes):
 
 
 def format_ap_table(metrics: dict, thresholds) -> list:
-    """Per-class AP/AR table for each threshold, then the voxel IoUs."""
+    """Per-class AP/AR table for each threshold (with the mesh AP's
+    `mAP_mesh` and `AR_mesh` when present), then the voxel IoUs."""
     lines = []
     for t in thresholds:
         lines.append(f"----- AP @ IoU {t} -----")
@@ -83,7 +84,7 @@ def format_ap_table(metrics: dict, thresholds) -> list:
                 cls = k[: -len(f" Average Precision @{t}")]
                 rec = metrics.get(f"{cls} Recall @{t}", 0.0)
                 lines.append(f"{cls:<16}{metrics[k]:>10.4f}{rec:>10.4f}")
-        for agg in ("mAP", "AR"):
+        for agg in ("mAP", "AR", "mAP_mesh", "AR_mesh"):
             key = f"{agg} @{t}"
             if key in metrics:
                 lines.append(f"{agg:<16}{metrics[key]:>10.4f}")

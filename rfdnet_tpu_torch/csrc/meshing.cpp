@@ -1,15 +1,19 @@
-// Host marching cubes of rfdnet_tpu_torch: the port's own copy of the
-// marching-cubes part of rfdnet_tpu/meshing/src/meshing.cpp (same case
-// table, scan order and vertex numbering, so both libraries give identical
-// arrays on identical grids). Plain C interface, loaded with ctypes
-// (rfdnet_tpu_torch/meshing/native.py). Vertices come back in grid-index
-// space, welded along shared edges.
+// Host meshing of rfdnet_tpu_torch: the port's own copy of the marching
+// cubes, the MISE octree, the sparse-replay marching cubes and the surface
+// voxelizer of rfdnet_tpu/meshing/src/meshing.cpp (same case table, scan
+// order and vertex numbering, so both libraries give identical arrays on
+// identical inputs when built with the same flags). Plain C interface,
+// loaded with ctypes (rfdnet_tpu_torch/meshing/native.py). Vertices come
+// back in grid-index space, welded along shared edges.
 
 #include <algorithm>
 #include <atomic>
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <deque>
+#include <limits>
 #include <thread>
 #include <vector>
 
@@ -126,6 +130,8 @@ struct Scratch {
   std::vector<uint32_t> edge_epoch;
   uint32_t epoch = 0;
   std::vector<uint64_t> sgn;
+  std::vector<float> val;    // MISE lattice values
+  std::vector<uint8_t> kn;   // MISE known flags
 
   void begin(size_t n_edges) {
     if (edge_vid.size() < n_edges) {
@@ -290,6 +296,95 @@ struct BatchResult {
 
 }  // namespace fastmc
 
+// ------------------------------------------------------------------- MISE
+// Multi-resolution iso-surface extraction octree (the role of the
+// reference's libmise). The Python lock-step loop (meshing/mise.py,
+// `mise_value_grids`) owns one handle per proposal; the bookkeeping
+// (frontier advance, ancestor fill) runs here.
+// Semantics are identical to the Python MISE class: query() returns the
+// unknown lattice points in lexicographic order (matching np.unique), a
+// voxel subdivides iff all 8 corners are known and their signs are mixed,
+// and to_dense() fills unknowns from the coarsest known floor-aligned
+// ancestor, level by level.
+
+struct MiseTree {
+  int res0, depth, R, level;
+  double threshold;
+  std::vector<double> values;  // (R+1)^3, NaN = unknown
+  std::vector<int64_t> pending;  // flat lattice ids, ascending
+
+  inline size_t id(int64_t x, int64_t y, int64_t z) const {
+    return ((size_t)x * (R + 1) + y) * (R + 1) + z;
+  }
+  inline bool known(size_t i) const { return !std::isnan(values[i]); }
+
+  MiseTree(int r0, int d, double thr)
+      : res0(r0), depth(d), R(r0 << d), level(0), threshold(thr),
+        values(((size_t)R + 1) * (R + 1) * (R + 1),
+               std::numeric_limits<double>::quiet_NaN()) {
+    int64_t step = (int64_t)1 << depth;
+    for (int64_t x = 0; x <= R; x += step)
+      for (int64_t y = 0; y <= R; y += step)
+        for (int64_t z = 0; z <= R; z += step)
+          pending.push_back((int64_t)id(x, y, z));
+  }
+
+  void advance() {
+    if (level >= depth) {
+      pending.clear();
+      return;
+    }
+    int64_t s = (int64_t)1 << (depth - level);  // voxel edge at this level
+    int64_t n = R / s, h = s / 2;
+    std::vector<int64_t> next;
+    for (int64_t i = 0; i < n; ++i)
+      for (int64_t j = 0; j < n; ++j)
+        for (int64_t k = 0; k < n; ++k) {
+          int occ = 0, kn = 0;
+          for (int dx = 0; dx <= 1; ++dx)
+            for (int dy = 0; dy <= 1; ++dy)
+              for (int dz = 0; dz <= 1; ++dz) {
+                size_t c = id((i + dx) * s, (j + dy) * s, (k + dz) * s);
+                if (known(c)) {
+                  ++kn;
+                  if (values[c] >= threshold) ++occ;
+                }
+              }
+          if (kn == 8 && occ > 0 && occ < 8) {
+            // queue the unknown points of the voxel's 3x3x3 half-stride
+            // child lattice
+            for (int64_t a = 0; a <= 2; ++a)
+              for (int64_t b = 0; b <= 2; ++b)
+                for (int64_t c = 0; c <= 2; ++c) {
+                  size_t p =
+                      id(i * s + a * h, j * s + b * h, k * s + c * h);
+                  if (!known(p)) next.push_back((int64_t)p);
+                }
+          }
+        }
+    std::sort(next.begin(), next.end());
+    next.erase(std::unique(next.begin(), next.end()), next.end());
+    pending.swap(next);
+    ++level;
+    if (pending.empty() && level < depth) advance();
+  }
+
+  void to_dense(float *out) const {
+    std::vector<double> v(values);
+    for (int lvl = 0; lvl < depth; ++lvl) {
+      int64_t s = (int64_t)1 << (depth - lvl), h = s / 2;
+      for (int64_t x = 0; x <= R; x += h)
+        for (int64_t y = 0; y <= R; y += h)
+          for (int64_t z = 0; z <= R; z += h) {
+            size_t p = id(x, y, z);
+            if (std::isnan(v[p]))
+              v[p] = v[id(x / s * s, y / s * s, z / s * s)];
+          }
+    }
+    for (size_t i = 0; i < v.size(); ++i) out[i] = (float)v[i];
+  }
+};
+
 // One dense grid, implicitly padded with pad_val (no padded copy),
 // marching cubes into `acc`; vertices in padded index space.
 void mc_one_padded(const float *grid, int nx, int ny, int nz, double iso,
@@ -350,6 +445,176 @@ void mc_one_padded(const float *grid, int nx, int ny, int nz, double iso,
           if (cv[c] > iso) cmask |= 1 << c;
         }
         fastmc::tess_cell(acc, x, y, z, PY, PZ, cv, cmask, iso);
+      });
+}
+
+// One proposal's sparse-replay marching cubes into `acc` (see
+// mise_mc_extract's contract). The final ancestor-fill level (h=1, which
+// visits every lattice point) is FUSED with the packed-sign build so the
+// lattice is swept once instead of twice.
+void mise_one(const float *lvl0, int res0, int steps, const int32_t *idx,
+              const float *vals, const int32_t *level_counts, double iso,
+              float pad_val, fastmc::Acc &acc) {
+  const int R = res0 << steps;
+  const int R1 = R + 1;
+  const size_t n_lat = (size_t)R1 * R1 * R1;
+  fastmc::Scratch &scr = fastmc::g_scratch;
+  acc.scr = &scr;
+  std::vector<float> &val = scr.val;
+  std::vector<uint8_t> &kn = scr.kn;
+  val.resize(n_lat);
+  kn.assign(n_lat, 0);
+  auto lat = [R1](int x, int y, int z) {
+    return ((size_t)x * R1 + y) * R1 + z;
+  };
+
+  // ---- scatter level 0
+  const int n01 = res0 + 1;
+  for (int x = 0; x <= res0; ++x)
+    for (int y = 0; y <= res0; ++y) {
+      float *row = &val[lat(x << steps, y << steps, 0)];
+      uint8_t *krow = &kn[lat(x << steps, y << steps, 0)];
+      const float *src = lvl0 + ((size_t)x * n01 + y) * n01;
+      for (int z = 0; z <= res0; ++z) {
+        row[(size_t)z << steps] = src[z];
+        krow[(size_t)z << steps] = 1;
+      }
+    }
+
+  // ---- scatter refinement levels
+  const int32_t *idx_l = idx;
+  const float *vals_l = vals;
+  for (int l = 0; l < steps; ++l) {
+    const int s = 1 << (steps - l), h = s >> 1;
+    const int off[3] = {0, h, s};
+    const int64_t n = (int64_t)res0 << l;
+    const int m = level_counts[l];
+    for (int e = 0; e < m; ++e) {
+      int64_t v = idx_l[e];
+      int bi = (int)(v / (n * n)) * s;
+      int bj = (int)((v / n) % n) * s;
+      int bk = (int)(v % n) * s;
+      const float *w = vals_l + (size_t)e * 27;
+      int q = 0;
+      for (int a = 0; a <= 2; ++a)
+        for (int b = 0; b <= 2; ++b)
+          for (int c = 0; c <= 2; ++c, ++q) {
+            size_t p = lat(bi + off[a], bj + off[b], bk + off[c]);
+            val[p] = w[q];
+            kn[p] = 1;
+          }
+    }
+    idx_l += m;
+    vals_l += (size_t)m * 27;
+  }
+
+  // ---- packed corner signs over the padded lattice
+  const int P = R + 3;  // padded lattice side
+  scr.begin((size_t)P * P * P * 3);
+  const int W = (P + 63) >> 6;
+  const bool pad_in = (double)pad_val > iso;
+  std::vector<uint64_t> pad_word(W);
+  for (int w = 0; w < W; ++w) {
+    int nbits = P - (w << 6);
+    uint64_t m = nbits >= 64 ? ~(uint64_t)0
+                             : (((uint64_t)1 << (nbits < 0 ? 0 : nbits)) - 1);
+    pad_word[w] = pad_in ? m : 0;
+  }
+  scr.sgn.assign((size_t)P * P * W, 0);
+  // pad boundary rows (x or y on the pad layer): whole row = pad sign
+  for (int x = 0; x < P; x += P - 1)
+    for (int y = 0; y < P; ++y) {
+      uint64_t *out = &scr.sgn[((size_t)x * P + y) * W];
+      for (int w = 0; w < W; ++w) out[w] = pad_word[w];
+    }
+  for (int y = 0; y < P; y += P - 1)
+    for (int x = 1; x < P - 1; ++x) {
+      uint64_t *out = &scr.sgn[((size_t)x * P + y) * W];
+      for (int w = 0; w < W; ++w) out[w] = pad_word[w];
+    }
+
+  // ---- ancestor fill (exact replay of the device to_dense rule; the
+  // stride floors are masks since s is a power of two). Levels before
+  // the last touch sub-lattices; the LAST level (h=1) visits every
+  // point, so the packed-sign build rides the same sweep.
+  for (int l = 0; l + 1 < steps; ++l) {
+    const int s = 1 << (steps - l), h = s >> 1;
+    const int m = ~(s - 1);
+    for (int x = 0; x <= R; x += h) {
+      const size_t ax = lat(x & m, 0, 0);
+      for (int y = 0; y <= R; y += h) {
+        const size_t axy = ax + (size_t)(y & m) * R1;
+        float *row = &val[lat(x, y, 0)];
+        uint8_t *krow = &kn[lat(x, y, 0)];
+        const float *arow = &val[axy];
+        for (int z = 0; z <= R; z += h)
+          if (!krow[z]) {
+            row[z] = arow[z & m];
+            krow[z] = 1;
+          }
+      }
+    }
+  }
+  if (steps >= 1) {
+    // last fill level (s=2) fused with sign packing; kn stores skipped
+    // (nothing reads kn afterwards)
+    for (int x = 0; x <= R; ++x) {
+      const size_t ax = lat(x & ~1, 0, 0);
+      for (int y = 0; y <= R; ++y) {
+        float *row = &val[lat(x, y, 0)];
+        const uint8_t *krow = &kn[lat(x, y, 0)];
+        const float *arow = &val[ax + (size_t)(y & ~1) * R1];
+        uint64_t *out = &scr.sgn[((size_t)(x + 1) * P + (y + 1)) * W];
+        if (pad_in) {
+          out[0] |= 1;
+          out[(P - 1) >> 6] |= (uint64_t)1 << ((P - 1) & 63);
+        }
+        for (int z = 0; z <= R; ++z) {
+          float v = krow[z] ? row[z] : (row[z] = arow[z & ~1]);
+          if ((double)v > iso) {
+            int bit = z + 1;
+            out[bit >> 6] |= (uint64_t)1 << (bit & 63);
+          }
+        }
+      }
+    }
+  } else {
+    // steps == 0: the lattice is fully known; pack directly
+    for (int x = 0; x <= R; ++x)
+      for (int y = 0; y <= R; ++y) {
+        const float *row = &val[lat(x, y, 0)];
+        uint64_t *out = &scr.sgn[((size_t)(x + 1) * P + (y + 1)) * W];
+        if (pad_in) {
+          out[0] |= 1;
+          out[(P - 1) >> 6] |= (uint64_t)1 << ((P - 1) & 63);
+        }
+        for (int z = 0; z <= R; ++z)
+          if ((double)row[z] > iso) {
+            int bit = z + 1;
+            out[bit >> 6] |= (uint64_t)1 << (bit & 63);
+          }
+      }
+  }
+
+  // ---- marching cubes over the padded cells, lexicographic order
+  auto val_at = [&](int x, int y, int z) -> double {
+    if (x == 0 || y == 0 || z == 0 || x == P - 1 || y == P - 1 ||
+        z == P - 1)
+      return (double)pad_val;
+    return (double)val[lat(x - 1, y - 1, z - 1)];
+  };
+  mc::case_table();
+  static const int CO[8][3] = {{0,0,0},{0,0,1},{0,1,0},{0,1,1},
+                               {1,0,0},{1,0,1},{1,1,0},{1,1,1}};
+  fastmc::scan_mixed(
+      scr.sgn.data(), P, P, P, [&](int x, int y, int z) {
+        double cv[8];
+        int cmask = 0;
+        for (int c = 0; c < 8; ++c) {
+          cv[c] = val_at(x + CO[c][0], y + CO[c][1], z + CO[c][2]);
+          if (cv[c] > iso) cmask |= 1 << c;
+        }
+        fastmc::tess_cell(acc, x, y, z, P, P, cv, cmask, iso);
       });
 }
 
@@ -464,5 +729,250 @@ void batch_mesh_get(void *h, int i, double **verts, int **tris) {
 }
 
 void batch_result_free(void *h) { delete (fastmc::BatchResult *)h; }
+
+// ------------------------------------------------------------ voxelizer
+// Triangle/AABB SAT overlap (the tribox2.h test of `external/libvoxelize`,
+// reimplemented from the separating-axis theorem).
+static bool tri_box_overlap(const double c[3], const double h[3],
+                            const double tv[3][3]) {
+  // tolerance against rounding on exactly-touching geometry (axis-aligned
+  // faces landing on voxel boundaries reject by ~1e-17 otherwise)
+  const double eps = 1e-9 * (h[0] + h[1] + h[2]);
+  double v[3][3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) v[i][j] = tv[i][j] - c[j];
+  double e[3][3];
+  for (int j = 0; j < 3; ++j) {
+    e[0][j] = v[1][j] - v[0][j];
+    e[1][j] = v[2][j] - v[1][j];
+    e[2][j] = v[0][j] - v[2][j];
+  }
+  // 9 cross-product axes
+  for (int i = 0; i < 3; ++i) {
+    for (int a = 0; a < 3; ++a) {
+      int a1 = (a + 1) % 3, a2 = (a + 2) % 3;
+      // axis = cross(unit_a, e_i) -> components: axis[a]=0,
+      // axis[a1]=-e[i][a2], axis[a2]=e[i][a1]
+      double p0 = -e[i][a2] * v[0][a1] + e[i][a1] * v[0][a2];
+      double p1 = -e[i][a2] * v[1][a1] + e[i][a1] * v[1][a2];
+      double p2 = -e[i][a2] * v[2][a1] + e[i][a1] * v[2][a2];
+      double mn = std::min(p0, std::min(p1, p2));
+      double mx = std::max(p0, std::max(p1, p2));
+      double rad = h[a1] * std::fabs(e[i][a2]) + h[a2] * std::fabs(e[i][a1]);
+      if (mn > rad + eps || mx < -rad - eps) return false;
+    }
+  }
+  // box face normals
+  for (int j = 0; j < 3; ++j) {
+    double mn = std::min(v[0][j], std::min(v[1][j], v[2][j]));
+    double mx = std::max(v[0][j], std::max(v[1][j], v[2][j]));
+    if (mn > h[j] + eps || mx < -h[j] - eps) return false;
+  }
+  // triangle normal
+  double n[3] = {e[0][1] * e[1][2] - e[0][2] * e[1][1],
+                 e[0][2] * e[1][0] - e[0][0] * e[1][2],
+                 e[0][0] * e[1][1] - e[0][1] * e[1][0]};
+  double d = -(n[0] * v[0][0] + n[1] * v[0][1] + n[2] * v[0][2]);
+  double r = h[0] * std::fabs(n[0]) + h[1] * std::fabs(n[1]) +
+             h[2] * std::fabs(n[2]);
+  double s = n[0] * 0 + n[1] * 0 + n[2] * 0 + d;  // plane at box center
+  return std::fabs(s) <= r + eps;
+}
+
+// Surface-voxelize a triangle mesh into a (nx, ny, nz) uint8 grid.
+// Cell (i,j,k) spans origin + [i,i+1)*voxel_size etc.
+void voxelize_surface(const double *verts, int nv, const int *tris, int nt,
+                      const double *origin, double voxel_size, int nx, int ny,
+                      int nz, uint8_t *out) {
+  (void)nv;
+  for (int t = 0; t < nt; ++t) {
+    double tv[3][3];
+    double mn[3] = {1e30, 1e30, 1e30}, mx[3] = {-1e30, -1e30, -1e30};
+    for (int i = 0; i < 3; ++i) {
+      const double *p = verts + 3 * tris[3 * t + i];
+      for (int j = 0; j < 3; ++j) {
+        tv[i][j] = p[j];
+        mn[j] = std::min(mn[j], p[j]);
+        mx[j] = std::max(mx[j], p[j]);
+      }
+    }
+    int lo[3], hi[3];
+    const int dims[3] = {nx, ny, nz};
+    for (int j = 0; j < 3; ++j) {
+      lo[j] = std::max(0, (int)std::floor((mn[j] - origin[j]) / voxel_size));
+      hi[j] = std::min(dims[j] - 1,
+                       (int)std::floor((mx[j] - origin[j]) / voxel_size));
+    }
+    double hs[3] = {voxel_size / 2, voxel_size / 2, voxel_size / 2};
+    for (int i = lo[0]; i <= hi[0]; ++i)
+      for (int j = lo[1]; j <= hi[1]; ++j)
+        for (int k = lo[2]; k <= hi[2]; ++k) {
+          size_t idx = ((size_t)i * ny + j) * nz + k;
+          if (out[idx]) continue;
+          double c[3] = {origin[0] + (i + 0.5) * voxel_size,
+                         origin[1] + (j + 0.5) * voxel_size,
+                         origin[2] + (k + 0.5) * voxel_size};
+          if (tri_box_overlap(c, hs, tv)) out[idx] = 1;
+        }
+  }
+}
+
+// Mark interior cells: flood-fill the exterior from the boundary through
+// non-surface cells; everything not reached and not surface is interior.
+void fill_interior(const uint8_t *surface, int nx, int ny, int nz,
+                   uint8_t *interior) {
+  size_t n = (size_t)nx * ny * nz;
+  std::vector<uint8_t> outside(n, 0);
+  std::deque<int64_t> queue;
+  auto idx_of = [&](int x, int y, int z) {
+    return ((int64_t)x * ny + y) * nz + z;
+  };
+  auto push = [&](int x, int y, int z) {
+    if (x < 0 || y < 0 || z < 0 || x >= nx || y >= ny || z >= nz) return;
+    int64_t i = idx_of(x, y, z);
+    if (outside[i] || surface[i]) return;
+    outside[i] = 1;
+    queue.push_back(i);
+  };
+  for (int x = 0; x < nx; ++x)
+    for (int y = 0; y < ny; ++y) {
+      push(x, y, 0);
+      push(x, y, nz - 1);
+    }
+  for (int x = 0; x < nx; ++x)
+    for (int z = 0; z < nz; ++z) {
+      push(x, 0, z);
+      push(x, ny - 1, z);
+    }
+  for (int y = 0; y < ny; ++y)
+    for (int z = 0; z < nz; ++z) {
+      push(0, y, z);
+      push(nx - 1, y, z);
+    }
+  while (!queue.empty()) {
+    int64_t i = queue.front();
+    queue.pop_front();
+    int z = (int)(i % nz), y = (int)((i / nz) % ny), x = (int)(i / ((int64_t)ny * nz));
+    push(x + 1, y, z);
+    push(x - 1, y, z);
+    push(x, y + 1, z);
+    push(x, y - 1, z);
+    push(x, y, z + 1);
+    push(x, y, z - 1);
+  }
+  for (size_t i = 0; i < n; ++i)
+    interior[i] = (!outside[i] && !surface[i]) ? 1 : 0;
+}
+
+void *mise_create(int resolution_0, int depth, double threshold) {
+  return new MiseTree(resolution_0, depth, threshold);
+}
+
+void mise_destroy(void *h) { delete (MiseTree *)h; }
+
+// Write up to `cap` pending lattice points (x,y,z triples, ascending
+// lexicographic) into out_pts; returns the number pending. Pending points
+// are by construction unknown (update() only queues unknowns).
+int mise_query(void *h, int64_t *out_pts, int cap) {
+  MiseTree &t = *(MiseTree *)h;
+  int n = (int)t.pending.size();
+  int m = n < cap ? n : cap;
+  int64_t r1 = t.R + 1;
+  for (int i = 0; i < m; ++i) {
+    int64_t f = t.pending[i];
+    out_pts[3 * i + 2] = f % r1;
+    out_pts[3 * i + 1] = (f / r1) % r1;
+    out_pts[3 * i] = f / (r1 * r1);
+  }
+  return n;
+}
+
+// Store values for the given lattice points and advance the frontier.
+void mise_update(void *h, const int64_t *pts, const double *vals, int n) {
+  MiseTree &t = *(MiseTree *)h;
+  for (int i = 0; i < n; ++i)
+    t.values[t.id(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2])] = vals[i];
+  t.advance();
+}
+
+void mise_to_dense(void *h, float *out) { ((MiseTree *)h)->to_dense(out); }
+
+// Marching cubes directly from the device octree's sparse outputs for ONE
+// proposal (meshing/mise_device.py) — no dense grid crosses to the host.
+// Produces BYTE-IDENTICAL vertices/triangles to `mc_extract` over the
+// -1e6-padded dense reconstruction (mise_device.reconstruct_dense ->
+// Generator3D.extract_mesh): the lattice is rebuilt
+// here (scatter + the exact ancestor-fill replay of the device
+// to_dense rule), a one-byte sign is precomputed per padded lattice
+// point, and every padded cell is scanned in the dense loop's
+// lexicographic order — uniform-sign cells cost an 8-byte check, mixed
+// cells run the same welded tessellation — so vertex ids come out
+// equal, not merely equivalent. (A one-ring candidate heuristic is NOT
+// sound here: ancestor fill at finer levels floors odd coordinates
+// back onto decoded face values, propagating them up to 2^steps-1
+// cells beyond a refined block and creating crossings outside any
+// fixed-margin ring.)
+//
+// Inputs: lvl0 = (res0+1)^3 f32 corner lattice (C order); idx/vals =
+// per-level refined-voxel linear ids (over the (res0*2^l)^3 voxel grid)
+// and their 27-point child-lattice values, levels concatenated with
+// level_counts[l] entries each; vals in the (0,h,s)^3 a-major offset
+// order of mise_device._offsets. iso in logit units; pad_val the
+// boundary closing value (-1e6). Vertices in PADDED index space.
+int mise_mc_extract(const float *lvl0, int res0, int steps,
+                    const int32_t *idx, const float *vals,
+                    const int32_t *level_counts, float iso, float pad_val,
+                    double **out_verts, int **out_tris,
+                    int *out_nv, int *out_nt) {
+  fastmc::Acc acc;
+  mise_one(lvl0, res0, steps, idx, vals, level_counts, iso, pad_val, acc);
+  *out_nv = (int)(acc.verts.size() / 3);
+  *out_nt = (int)(acc.tris.size() / 3);
+  double *ov = new double[acc.verts.size()];
+  int *ot = new int[acc.tris.size()];
+  std::memcpy(ov, acc.verts.data(), acc.verts.size() * sizeof(double));
+  std::memcpy(ot, acc.tris.data(), acc.tris.size() * sizeof(int));
+  *out_verts = ov;
+  *out_tris = ot;
+  return 0;
+}
+
+// Batched mise_mc_extract over n proposals in ONE call (one ctypes call
+// a scene, not one a proposal), with
+// a gated worker pool across proposals (fastmc::parallel_for — serial on
+// a 1-core host). Layout: level_counts (n, steps) row-major; idx/vals
+// concatenated in (proposal, level) order; valid=NULL or (n,) uint8 —
+// invalid proposals produce empty meshes. Returns a handle: read each
+// proposal's buffers with batch_mesh_get (zero-copy views into the
+// result), free once with batch_result_free.
+void *mise_mc_extract_batch(const float *lvl0s, int n, int res0, int steps,
+                            const int32_t *idx, const float *vals,
+                            const int32_t *level_counts, float iso,
+                            float pad_val, const uint8_t *valid,
+                            int32_t *nv_per, int32_t *nt_per) {
+  const size_t lvl0_sz =
+      (size_t)(res0 + 1) * (res0 + 1) * (res0 + 1);
+  // per-proposal offsets into idx/vals
+  std::vector<size_t> off(n + 1, 0);
+  for (int i = 0; i < n; ++i) {
+    size_t c = 0;
+    for (int l = 0; l < steps; ++l) c += (size_t)level_counts[i * steps + l];
+    off[i + 1] = off[i] + c;
+  }
+  mc::case_table();  // build once before threads fan out
+  auto *res = new fastmc::BatchResult;
+  res->accs.resize(n);
+  fastmc::parallel_for(n, [&](int i) {
+    if (valid && !valid[i]) return;
+    mise_one(lvl0s + (size_t)i * lvl0_sz, res0, steps, idx + off[i],
+             vals + off[i] * 27, level_counts + (size_t)i * steps, iso,
+             pad_val, res->accs[i]);
+  });
+  for (int i = 0; i < n; ++i) {
+    nv_per[i] = (int32_t)(res->accs[i].verts.size() / 3);
+    nt_per[i] = (int32_t)(res->accs[i].tris.size() / 3);
+  }
+  return res;
+}
 
 }  // extern "C"

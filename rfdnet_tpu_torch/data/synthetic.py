@@ -5,7 +5,8 @@
 MAX_NUM_OBJ-padded box labels, per-point votes and instance labels, and
 per-object occupancy point sets and 16^3 voxels. `write_scannet_scenes`
 writes such scenes in the layout that `data.scannet.ScanNetDataset`
-reads, so that the test path runs from files without the real datasets.
+reads, with a watertight mesh of each object for the mesh mAP, so that the
+test path runs from files without the real datasets.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import pickle
 import numpy as np
 
 from ..config import CLASS_IDS, MEAN_SIZE_ARR, NUM_HEADING_BIN
+from ..meshing.mesh import write_off
 from .binvox import Voxels, write_binvox
 
 MAX_NUM_OBJ = 64
@@ -163,6 +165,20 @@ def _object_points(rng, n: int):
     return points, occ
 
 
+def box_mesh(half: float = 0.45):
+    """The closed 12-triangle surface of the cube [-half, half]^3 (the
+    synthetic object's occupied set), outward-facing: (8, 3) vertices,
+    (12, 3) int32 triangles."""
+    corners = np.array([[x, y, z] for x in (-half, half) for y in (-half, half)
+                        for z in (-half, half)])
+    # corner index = 4 x + 2 y + z; each face as two counter-clockwise
+    # triangles seen from outside
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3)]
+    tris = [t for a, b, c, d in quads for t in ((a, b, c), (a, c, d))]
+    return corners, np.array(tris, dtype=np.int32)
+
+
 def write_scannet_scenes(root: str, num_scenes: int, seed: int = 0,
                          num_points: int = 4096, num_objects: int = 4,
                          points_subsample=(1024, 1024)) -> dict:
@@ -183,6 +199,8 @@ def write_scannet_scenes(root: str, num_scenes: int, seed: int = 0,
         shapenet/point/<catid>/<sid>.npz    points (M, 3), packed
                                             occupancies
         shapenet/voxel/16/<catid>/<sid>.binvox
+        shapenet/watertight_scaled_simplified/<catid>/<sid>.off
+                                            the object's cube (`box_mesh`)
 
     Each object's occupancy file holds as many free as occupied points,
     enough for the test mode's first `points_subsample` rows of each.
@@ -225,8 +243,11 @@ def write_scannet_scenes(root: str, num_scenes: int, seed: int = 0,
             points, occ = _object_points(rng, n_occ)
             point_dir = os.path.join(shapenet, "point", catid)
             voxel_dir = os.path.join(shapenet, "voxel", "16", catid)
-            os.makedirs(point_dir, exist_ok=True)
-            os.makedirs(voxel_dir, exist_ok=True)
+            mesh_dir = os.path.join(shapenet, "watertight_scaled_simplified",
+                                    catid)
+            for d in (point_dir, voxel_dir, mesh_dir):
+                os.makedirs(d, exist_ok=True)
+            write_off(os.path.join(mesh_dir, sid + ".off"), *box_mesh())
             np.savez(os.path.join(point_dir, sid + ".npz"), points=points,
                      occupancies=np.packbits(occ))
             with open(os.path.join(voxel_dir, sid + ".binvox"), "wb") as f:

@@ -2,16 +2,20 @@
 
 Counterpart of `rfdnet_tpu/demo.py`: load a scan, append the height
 feature (floor = 0.99-percentile z), subsample to `num_point`, run
-detection -> NMS -> skip propagation -> the dense occupancy grid of every
-selected proposal -> marching cubes on the host, and dump
+detection -> NMS -> skip propagation -> the occupancy of every selected
+proposal (a dense grid, or with `generation.upsampling_steps > 0` an octree
+on the card) -> marching cubes on the host, and dump
 `proposal_<j>_mesh.ply`, `000000_pc.ply` and the NMS-filtered bbox npz.
-`generate_grids` stops at the logit grids on the device (what a tester
-reads before extraction); `post_processing` refits the boxes to the scan
-(`eval.refit`). Not ported yet: the `scene.html` / `pred.png` renderings.
+`generation.use_sampling` decodes with one prior draw of z a proposal
+(`ISCNet.sample_z`) in place of the prior mean. `generate_grids` stops at
+the logit grids on the device (what a tester reads before extraction);
+`post_processing` refits the boxes to the scan (`eval.refit`). Not ported
+yet: the `scene.html` / `pred.png` renderings.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 
@@ -45,44 +49,49 @@ def load_demo_data(path: str, num_points: int = 80_000,
         np.ascontiguousarray(points[choice][None])).to(dev)}
 
 
-def _check_generation(gen_cfg: dict) -> None:
-    if gen_cfg["upsampling_steps"] != 0 or gen_cfg["use_sampling"]:
-        raise NotImplementedError(
-            "only the dense grid (upsampling_steps 0) with the prior-mean z "
-            "(use_sampling false) is ported (ROADMAP.md, 'MISE')")
-
-
 def generate_grids(cfg: dict, model, point_clouds: torch.Tensor, marks=None):
-    """Detection + completion + dense grid decode for one scene, all on
-    the device of `point_clouds`. Returns (end_points, parsed, gen, grids),
-    grids (G, r, r, r) logits with r = `generation.resolution_0`; for a
-    model in the detection phase gen and grids are None. `marks`: see
-    `ISCNet.generate`."""
+    """Detection + completion + the occupancy of every selected proposal
+    for one scene, all on the device of `point_clouds`. Returns
+    (end_points, parsed, gen, grids): grids (G, r, r, r) logits with r =
+    `generation.resolution_0` at `upsampling_steps` 0, else the device
+    octree's `mise_device.MiseOutput`; for a model in the detection phase
+    gen and grids are None. `marks`: see `ISCNet.generate`."""
     gen_cfg = cfg["generation"]
-    _check_generation(gen_cfg)
+    dense = gen_cfg["upsampling_steps"] == 0
     ec = eval_config(cfg)
     out = model.generate(
         {"point_clouds": point_clouds},
         nms_iou=ec["nms_iou"], use_cls_nms=ec["cls_nms"],
         dump_threshold=gen_cfg["dump_threshold"],
         remove_empty_box=ec["remove_empty_box"],
-        decode_grid_res=gen_cfg["resolution_0"], marks=marks,
+        decode_grid_res=gen_cfg["resolution_0"] if dense else None,
+        grid_sample=gen_cfg["use_sampling"], marks=marks,
     )
-    return (out["end_points"], out["parsed"], out.get("gen"),
-            out.get("grids"))
+    grids = out.get("grids")
+    if not dense and "gen" in out:
+        gen = out["gen"]
+        grids = make_generator(cfg, model).run_octree(
+            gen["features"], gen["cls_codes"], gen["valid"].reshape(-1))
+        _mark(marks, "octree")
+    return out["end_points"], out["parsed"], out.get("gen"), grids
 
 
-def make_generator(cfg: dict, model) -> Generator3D:
-    """The mesh generator that `cfg` describes over `model`'s decoder."""
+def make_generator(cfg: dict, model, mise_impl: str = "device") -> Generator3D:
+    """The mesh generator that `cfg` describes over `model`'s decoder, its
+    octree (at `upsampling_steps > 0`) on the card (`mise_impl="device"`)
+    or on the host (`"host"`)."""
     gen_cfg = cfg["generation"]
-    _check_generation(gen_cfg)
+    sample = bool(gen_cfg["use_sampling"])
     return Generator3D(
-        model.decode_occupancy, threshold=cfg["data"]["threshold"],
+        functools.partial(model.decode_occupancy, sample=sample),
+        threshold=cfg["data"]["threshold"],
         resolution0=gen_cfg["resolution_0"],
         upsampling_steps=gen_cfg["upsampling_steps"],
         refinement_step=gen_cfg.get("refinement_step", 0) or 0,
         simplify_nfaces=gen_cfg.get("simplify_nfaces"),
         with_normals=gen_cfg.get("with_normals", False),
+        mise_impl=mise_impl,
+        bind_fn=functools.partial(model.occupancy_decoder, sample=sample),
     )
 
 
@@ -110,7 +119,8 @@ def generate(cfg: dict, model, data: dict, post_processing: bool = False,
     `ISCNet.generate`. `host_ms`: a dict that receives the host-clock
     milliseconds of the copy to the host (`d2h`: grids, parsed and gen)
     and of the extraction (`mesh`); asking for them makes the host wait for
-    the device before the copy starts."""
+    the device before the copy starts. The grids (or, with MISE, the
+    device octree's outputs) come from `generator.start`."""
     if model.phase != "completion":
         raise ValueError(f"a model in the {model.phase} phase completes no "
                          "shapes: call generate_grids for its detections")
@@ -124,17 +134,17 @@ def generate(cfg: dict, model, data: dict, post_processing: bool = False,
         remove_empty_box=ec["remove_empty_box"], marks=marks,
     )
     gen = out["gen"]
-    grids = generator.decode_grids(gen["features"], gen["cls_codes"])
-    _mark(marks, "grid_decode")
+    valid = gen["valid"].reshape(-1)
+    download = generator.start(gen["features"], gen["cls_codes"], valid)
+    _mark(marks, "grid_decode" if generator.upsampling_steps == 0
+          else "octree")
     if host_ms is not None and pc.device.type == "cuda":
         torch.cuda.synchronize(pc.device)
     t0 = time.perf_counter()
-    download = generator.start_download(grids)
     parsed, gen = _to_numpy(out["parsed"]), _to_numpy(gen)
-    host_grids = download.wait()
+    host = download.wait()
     t1 = time.perf_counter()
-    meshes = generator.meshes_from_grids(host_grids,
-                                         valid=gen["valid"].reshape(-1))
+    meshes = generator.meshes_from(host, valid=gen["valid"].reshape(-1))
     if host_ms is not None:
         host_ms["d2h"] = (t1 - t0) * 1e3
         host_ms["mesh"] = (time.perf_counter() - t1) * 1e3

@@ -5,11 +5,19 @@ Counterpart of `rfdnet_tpu/eval/tester.py`. For each val scene
 `dispatch_step` queues the device work on the current stream (detection,
 NMS, completion conditioning with the supervised skip propagation, the eval
 completion loss, the 16^3 shape voxels as bits and, when meshes are
-generated, every slot's dense grid) and the copies of its outputs into
-host buffers of their own. `consume_step` waits for those copies, then
-extracts the meshes on the host, refits the boxes to the scan on the
-device (`fit_to_scan`: the completion phase with meshes), and assembles the
-(class, box, score) tuples of the AP and the voxel IoU of each valid slot.
+generated, every slot's dense grid, or with `upsampling_steps > 0` the
+octrees on the card, whose level syncs run on the main thread) and the
+copies of its outputs into host buffers of their own. `consume_step` waits
+for those copies, then extracts the meshes on the host (from the grids, or
+straight from the octrees' sparse outputs), refits the boxes to the scan on
+the device (`fit_to_scan`: the completion phase with meshes), and assembles
+the (class, box[, mesh], score) tuples of the AP and the voxel IoU of each
+valid slot. With `evaluate_mesh_mAP` (and meshes) it also voxelizes each
+valid slot's mesh placed in its box and each GT object's watertight mesh
+(`<shapenet_path>/watertight_scaled_simplified/<catid>/<id>.off`) placed
+in its GT box, at the scene's z-extent / 46, on 8 threads, for the mesh AP
+(`mAP_mesh`, `AR_mesh`); the dump threshold is then the eval config's
+`conf_thresh`.
 
 `run` keeps one scene in flight: scene i's `consume_step` runs in a worker
 thread, on a CUDA stream of its own, while the main thread queues scene
@@ -21,8 +29,8 @@ picks its operand type. `generation.decoder_impl`, the JAX package's
 choice between its Pallas kernel and XLA, has no counterpart and is
 ignored. The grids cross to the host as dense float32: the f16 and sparse
 transfers of the JAX Tester exist for the TPU's host link and are not
-ported. Not ported either: the mesh mAP (`evaluate_mesh_mAP`, which
-raises) and the `scene.html` dump.
+ported, nor is its f16 narrowing of the octree's decodes (the port keeps
+f32). Not ported: the `scene.html` dump.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from .ap_helper import (
     parse_groundtruths,
 )
 from .box_util import flip_axis_to_depth
+from .mesh_iou import mesh_iou, voxelize_mesh_pair
 from .refit import TRANSFORM_SHAPENET, _box_params_from_corners, fit_meshes_to_scan
 
 # the batch fields `ISCNet.generate` reads; the rest stays on the host
@@ -99,17 +108,23 @@ class Tester:
         mode = cfg["mode"]
         gen_cfg = cfg["generation"]
         self.generate_mesh = gen_cfg["generate_mesh"]
-        if cfg.get(mode, {}).get("evaluate_mesh_mAP") and self.generate_mesh:
-            raise NotImplementedError(
-                "evaluate_mesh_mAP needs eval/mesh_iou.py, not ported "
-                "(ROADMAP.md, 'Left-overs': mesh mAP)")
+        self.evaluate_mesh_mAP = bool(
+            cfg.get(mode, {}).get("evaluate_mesh_mAP") and self.generate_mesh)
         self.eval_config = eval_config(cfg)
-        self.dump_threshold = gen_cfg["dump_threshold"]
+        self.dump_threshold = (self.eval_config["conf_thresh"]
+                               if self.evaluate_mesh_mAP
+                               else gen_cfg["dump_threshold"])
         self.fit_to_scan = (cfg.get(mode, {}).get("phase", "") == "completion"
                             and self.generate_mesh)
         self.generator = (make_generator(cfg, model) if self.generate_mesh
                           else None)
-        self._grid_res = gen_cfg["resolution_0"] if self.generate_mesh else None
+        self._sample_z = bool(gen_cfg["use_sampling"])
+        # the dense grids come from `ISCNet.generate`; an octree from the
+        # generator, after it
+        self._grid_res = (gen_cfg["resolution_0"] if self.generate_mesh
+                          and gen_cfg["upsampling_steps"] == 0 else None)
+        self._octree = self.generate_mesh and gen_cfg["upsampling_steps"] > 0
+        self._pool = ThreadPoolExecutor(8)
         # the worker's stream: its refit runs beside the next scene's work
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -130,17 +145,25 @@ class Tester:
                 for k in _DEVICE_KEYS if k in batch}
         events = None
         if dev.type == "cuda":
-            events = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
+            events = [torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True)]
             events[0].record()
         ec = self.eval_config
         out = self.model.generate(
             data, nms_iou=ec["nms_iou"], use_cls_nms=ec["cls_nms"],
             dump_threshold=self.dump_threshold,
             remove_empty_box=ec["remove_empty_box"],
-            decode_grid_res=self._grid_res)
+            decode_grid_res=self._grid_res, grid_sample=self._sample_z)
         if events is not None:
             events[1].record()
+        octree = None
+        if self._octree and "gen" in out:
+            gen = out["gen"]
+            octree = self.generator.start(gen["features"], gen["cls_codes"],
+                                          gen["valid"].reshape(-1))
+            if events is not None:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[2].record()
         host = {"parsed": {k: host_copy(v) for k, v in out["parsed"].items()}}
         if "gen" in out:
             host["gen"] = {k: host_copy(v) for k, v in out["gen"].items()
@@ -149,7 +172,7 @@ class Tester:
             if k in out:
                 host[k] = host_copy(out[k])
         return {"batch": batch, "host": host, "done": copies_done(dev),
-                "events": events, "dispatch_ms": _ms(t0)}
+                "octree": octree, "events": events, "dispatch_ms": _ms(t0)}
 
     def test_step(self, batch: dict) -> dict:
         return self.consume_step(self.dispatch_step(batch))
@@ -158,16 +181,21 @@ class Tester:
         """The host half of a scene (and the refit, on the device). Its
         stage times land in `scene_ms`: `dispatch` (host, queueing the
         scene), `generate` (device, from the scene's first to its last
-        queued operation, as CUDA events), `d2h` (waiting for the scene's
-        device work and the copies of its outputs), `mesh`, `refit`, `ap`
+        queued operation, as CUDA events), `octree` (device, with MISE),
+        `d2h` (waiting for the scene's device work and the copies of its
+        outputs), `mesh`, `refit`, `voxelize` (with the mesh mAP), `ap`
         (voxel IoU and AP assembly); `run` adds `dump`."""
         t0 = time.perf_counter()
         if pending["done"] is not None:
             pending["done"].synchronize()
+        octree = (pending["octree"].wait() if pending["octree"] is not None
+                  else None)
         ms = {"dispatch": pending["dispatch_ms"], "d2h": _ms(t0)}
-        if pending["events"] is not None:
-            ms["generate"] = pending["events"][0].elapsed_time(
-                pending["events"][1])
+        events = pending["events"]
+        if events is not None:
+            ms["generate"] = events[0].elapsed_time(events[1])
+            if len(events) > 2:
+                ms["octree"] = events[1].elapsed_time(events[2])
         host, batch = pending["host"], pending["batch"]
         parsed = {k: v.numpy() for k, v in host["parsed"].items()}
         gen = {k: v.numpy() for k, v in host.get("gen", {}).items()}
@@ -184,6 +212,9 @@ class Tester:
         if gen and "grids" in host:
             meshes = self.generator.meshes_from_grids(
                 host["grids"].numpy(), valid=gen["valid"].reshape(-1))
+        elif gen and octree is not None:
+            meshes = self.generator.meshes_from(
+                octree, valid=gen["valid"].reshape(-1))
         ms["mesh"] = _ms(t0)
         t0 = time.perf_counter()
         refit_sizes = {}
@@ -193,6 +224,16 @@ class Tester:
                 point_clouds, self.dump_threshold, device=self.device,
                 stats=refit_sizes)
         ms["refit"] = _ms(t0)
+
+        mesh_pairs = gt_mesh_pairs = None
+        if self.evaluate_mesh_mAP and meshes is not None:
+            t0 = time.perf_counter()
+            voxel_size = float(point_clouds[0, :, 2].max()
+                               - point_clouds[0, :, 2].min()) / 46.0
+            mesh_pairs = self._voxelize_meshes(meshes, parsed, gen,
+                                               voxel_size)
+            gt_mesh_pairs = self._voxelize_gt_meshes(batch, voxel_size)
+            ms["voxelize"] = _ms(t0)
 
         t0 = time.perf_counter()
         iou_stats = None
@@ -211,8 +252,10 @@ class Tester:
         ec = self.eval_config
         batch_pred = assembly_pred_map_cls(
             parsed, conf_thresh=ec["conf_thresh"],
-            per_class_proposal=ec["per_class_proposal"])
-        batch_gt = assembly_gt_map_cls(parse_groundtruths(batch))
+            per_class_proposal=ec["per_class_proposal"], meshes=mesh_pairs,
+            proposal_ids=gen.get("proposal_ids"))
+        batch_gt = assembly_gt_map_cls(parse_groundtruths(batch),
+                                       meshes=gt_mesh_pairs)
         ms["ap"] = _ms(t0)
         return {
             "losses": losses,
@@ -225,6 +268,47 @@ class Tester:
             "ms": ms,
             "refit_sizes": refit_sizes,
         }
+
+    def _voxelize_meshes(self, meshes, parsed, gen, voxel_size):
+        """(B, G) nested lists: each valid slot's non-empty mesh placed in
+        its proposal's box (scan frame) and voxelized, else None."""
+        B, G, _ = gen["proposal_ids"].shape
+        corners = parsed["pred_corners_3d_upright_camera"]
+
+        def job(i, g):
+            mesh = meshes[i * G + g]
+            if not gen["valid"][i, g] or len(mesh.vertices) == 0:
+                return None
+            j = int(gen["proposal_ids"][i, g, 0])
+            placed = place_mesh_in_box(mesh, corners[i, j])
+            return voxelize_mesh_pair(placed.vertices, placed.faces,
+                                      voxel_size)
+
+        pairs = list(self._pool.map(
+            lambda a: job(*a), [(i, g) for i in range(B) for g in range(G)]))
+        return [pairs[i * G:(i + 1) * G] for i in range(B)]
+
+    def _voxelize_gt_meshes(self, batch, voxel_size):
+        """(B, objects) nested lists: each GT object's watertight mesh
+        placed in its GT box and voxelized, None where the file is
+        missing."""
+        from ..meshing.mesh import TriMesh
+
+        root = os.path.join(self.cfg["data"]["shapenet_path"],
+                            "watertight_scaled_simplified")
+        corners = parse_groundtruths(batch)["gt_corners_3d_upright_camera"]
+
+        def job(i, j, cat, sid):
+            path = os.path.join(root, cat, sid + ".off")
+            if not os.path.exists(path):
+                return None
+            mesh = place_mesh_in_box(TriMesh.load(path), corners[i, j])
+            return voxelize_mesh_pair(mesh.vertices, mesh.faces, voxel_size)
+
+        return [list(self._pool.map(
+            lambda a: job(i, a[0], *a[1]), enumerate(zip(cats, ids))))
+            for i, (cats, ids) in enumerate(zip(batch["shapenet_catids"],
+                                                batch["shapenet_ids"]))]
 
     # -------------------------------------------------------------- dumps
     def visualize_step(self, out: dict, batch: dict, scene_dir: str):
@@ -295,15 +379,19 @@ class Tester:
             dump_dir=None, overlap: bool = True):
         """A full evaluation pass -> metrics: `<class> Average Precision
         @<t>`, `<class> Recall @<t>`, `mAP @<t>`, `AR @<t>` for each
-        threshold and `<class> voxel IoU`. With `overlap` one scene is in
+        threshold and `<class> voxel IoU`, and with the mesh mAP the same
+        of the mesh IoU (`<class> Average Precision_mesh @<t>`, `mAP_mesh
+        @<t>`, `AR_mesh @<t>`). With `overlap` one scene is in
         flight while the next one's device work is queued; without, the
         scenes run one after the other. `scene_ms` receives each scene's
         stage times, `refit_sizes` the sizes of its refit (see
         `fit_meshes_to_scan`), `run_ms` the host-clock time of the scenes (loading
         included, the final AP computation not), `metrics_ms` that of the
         final AP computation."""
-        calculators = {t: APCalculator(t, CLASS2TYPE)
-                       for t in ap_iou_thresholds}
+        calculators = {
+            t: APCalculator(t, CLASS2TYPE, mesh_iou_func=(
+                mesh_iou if self.evaluate_mesh_mAP else None))
+            for t in ap_iou_thresholds}
         cls_iou_stats = {}
         self.scene_ms, self.refit_sizes = [], []
         done = 0

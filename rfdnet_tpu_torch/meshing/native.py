@@ -1,9 +1,12 @@
-"""ctypes bindings of the host marching cubes (`csrc/meshing.cpp`).
+"""ctypes bindings of the host meshing library (`csrc/meshing.cpp`).
 
-Counterpart of the marching-cubes part of `rfdnet_tpu/meshing/native.py`.
-The library is built with `g++` at first use by `ops/_native.py`; a missing
-compiler or a failed build raises. Every extractor returns vertices (V, 3)
-float64 in grid-index space and triangles (T, 3) int32.
+Counterpart of `rfdnet_tpu/meshing/native.py`: marching cubes over dense
+grids, the MISE octree (`MiseNative`), marching cubes straight from the
+device octree's sparse outputs (`mise_marching_cubes(_batch)`), and the
+surface voxelizer and interior fill of the mesh mAP. The library is built
+with `g++` at first use by `ops/_native.py`; a missing compiler or a
+failed build raises. Every extractor returns vertices (V, 3) float64 in
+grid-index space and triangles (T, 3) int32.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from ..ops import _native
 _F32P = ctypes.POINTER(ctypes.c_float)
 _F64P = ctypes.POINTER(ctypes.c_double)
 _I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _MESH_OUT = [ctypes.POINTER(_F64P), ctypes.POINTER(_I32P), _I32P, _I32P]
 
@@ -47,6 +51,31 @@ def get_lib() -> ctypes.CDLL:
     lib.batch_result_free.argtypes = [ctypes.c_void_p]
     lib.mesh_threads.restype = ctypes.c_int
     lib.mesh_threads.argtypes = [ctypes.c_int]
+    lib.mise_mc_extract.restype = ctypes.c_int
+    lib.mise_mc_extract.argtypes = [
+        _F32P, ctypes.c_int, ctypes.c_int, _I32P, _F32P, _I32P,
+        ctypes.c_float, ctypes.c_float, *_MESH_OUT]
+    lib.mise_mc_extract_batch.restype = ctypes.c_void_p
+    lib.mise_mc_extract_batch.argtypes = [
+        _F32P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _I32P, _F32P, _I32P,
+        ctypes.c_float, ctypes.c_float, _U8P, _I32P, _I32P]
+    lib.mise_create.restype = ctypes.c_void_p
+    lib.mise_create.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_double]
+    lib.mise_destroy.restype = None
+    lib.mise_destroy.argtypes = [ctypes.c_void_p]
+    lib.mise_query.restype = ctypes.c_int
+    lib.mise_query.argtypes = [ctypes.c_void_p, _I64P, ctypes.c_int]
+    lib.mise_update.restype = None
+    lib.mise_update.argtypes = [ctypes.c_void_p, _I64P, _F64P, ctypes.c_int]
+    lib.mise_to_dense.restype = None
+    lib.mise_to_dense.argtypes = [ctypes.c_void_p, _F32P]
+    lib.voxelize_surface.restype = None
+    lib.voxelize_surface.argtypes = [
+        _F64P, ctypes.c_int, _I32P, ctypes.c_int, _F64P, ctypes.c_double,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P]
+    lib.fill_interior.restype = None
+    lib.fill_interior.argtypes = [
+        _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P]
     return lib
 
 
@@ -60,10 +89,16 @@ def _grid(grid, ndim: int) -> np.ndarray:
 
 def _extract(fn, grid: np.ndarray, *scalars):
     """Call a single-grid extractor and copy its mesh out of native memory."""
+    return _mesh_call(fn, grid.ctypes.data_as(_F32P), *grid.shape, *scalars)
+
+
+def _mesh_call(fn, *args):
+    """fn(*args, &verts, &tris, &nv, &nt), its mesh copied out of native
+    memory."""
     lib = get_lib()
     vp, tp = _F64P(), _I32P()
     nv, nt = ctypes.c_int32(), ctypes.c_int32()
-    fn(grid.ctypes.data_as(_F32P), *grid.shape, *scalars,
+    fn(*args,
        ctypes.byref(vp), ctypes.byref(tp), ctypes.byref(nv), ctypes.byref(nt))
     try:
         verts = np.ctypeslib.as_array(vp, shape=(nv.value, 3)).copy()
@@ -103,23 +138,22 @@ def marching_cubes_batch(grids: np.ndarray, iso: float,
     lib = get_lib()
     grids = _grid(grids, 4)
     n = grids.shape[0]
-    vmask, vptr = None, _U8P()
-    if valid is not None:
-        vmask = np.ascontiguousarray(
-            np.asarray(valid).reshape(-1).astype(np.uint8))
-        if vmask.shape[0] != n:
-            raise ValueError(f"valid has {vmask.shape[0]} flags for {n} grids")
-        vptr = vmask.ctypes.data_as(_U8P)
+    vmask, vptr = _valid_mask(valid, n)
     nv_per = np.zeros(n, np.int32)
     nt_per = np.zeros(n, np.int32)
     handle = lib.mc_extract_batch(
         grids.ctypes.data_as(_F32P), *grids.shape, ctypes.c_float(iso),
         ctypes.c_float(pad_val), vptr, nv_per.ctypes.data_as(_I32P),
         nt_per.ctypes.data_as(_I32P))
+    return _split_batch(lib, handle, nv_per, nt_per)
+
+
+def _split_batch(lib, handle, nv_per, nt_per):
+    """Copy each mesh out of a batch result, then free the result."""
     out = []
     vp, tp = _F64P(), _I32P()
     try:
-        for i in range(n):
+        for i in range(len(nv_per)):
             nv, nt = int(nv_per[i]), int(nt_per[i])
             if nv == 0:
                 out.append((np.zeros((0, 3)), np.zeros((0, 3), np.int32)))
@@ -130,3 +164,149 @@ def marching_cubes_batch(grids: np.ndarray, iso: float,
     finally:
         lib.batch_result_free(handle)
     return out
+
+
+def _valid_mask(valid, n: int):
+    """(mask array or None, pointer) of `valid` flags for n proposals."""
+    if valid is None:
+        return None, _U8P()
+    vmask = np.ascontiguousarray(np.asarray(valid).reshape(-1).astype(np.uint8))
+    if vmask.shape[0] != n:
+        raise ValueError(f"valid has {vmask.shape[0]} flags for {n} grids")
+    return vmask, vmask.ctypes.data_as(_U8P)
+
+
+def _mise_levels(level_idx, level_vals):
+    """(idx (M,) int32, vals (M, 27) f32) of per-level lists, concatenated."""
+    idx = np.ascontiguousarray(np.concatenate(
+        [np.asarray(i, np.int32).ravel() for i in level_idx])
+        if len(level_idx) else np.zeros(0, np.int32), dtype=np.int32)
+    vals = np.ascontiguousarray(np.concatenate(
+        [np.asarray(v, np.float32).reshape(-1, 27) for v in level_vals])
+        if len(level_vals) else np.zeros((0, 27), np.float32),
+        dtype=np.float32)
+    return idx, vals
+
+
+def mise_marching_cubes(lvl0: np.ndarray, resolution_0: int,
+                        upsampling_steps: int, level_idx, level_vals,
+                        iso: float, pad_val: float = -1e6):
+    """Marching cubes straight from ONE proposal's octree outputs: the
+    (res0+1)^3 level-0 lattice, and per refinement level the refined
+    voxels' linear ids (ascending) and their (m, 27) child-lattice values
+    (`mise_device` order). The library rebuilds the lattice with the
+    ancestor fill and scans every padded cell, so the output is identical
+    to `marching_cubes(np.pad(reconstruct_dense(...), 1, constant_values=
+    pad_val), iso)`. Vertices in PADDED index space."""
+    lvl0 = _grid(lvl0, 3)
+    counts = np.array([len(i) for i in level_idx], dtype=np.int32)
+    idx, vals = _mise_levels(level_idx, level_vals)
+    return _mesh_call(get_lib().mise_mc_extract, lvl0.ctypes.data_as(_F32P),
+                      int(resolution_0), int(upsampling_steps),
+                      idx.ctypes.data_as(_I32P), vals.ctypes.data_as(_F32P),
+                      counts.ctypes.data_as(_I32P), ctypes.c_float(iso),
+                      ctypes.c_float(pad_val))
+
+
+def mise_marching_cubes_batch(lvl0s: np.ndarray, resolution_0: int,
+                              upsampling_steps: int, idx: np.ndarray,
+                              vals: np.ndarray, level_counts: np.ndarray,
+                              iso: float, valid=None, pad_val: float = -1e6):
+    """`mise_marching_cubes` over n proposals in one native call, spread
+    over the library's worker threads. lvl0s (n, res0+1, res0+1, res0+1);
+    level_counts (n, steps); idx (M,) and vals (M, 27) concatenated in
+    (proposal, level) order. Returns a list of (verts, tris) in padded
+    index space; empty pairs for invalid slots."""
+    lib = get_lib()
+    lvl0s = _grid(lvl0s, 4)
+    n = lvl0s.shape[0]
+    level_counts = np.ascontiguousarray(level_counts, dtype=np.int32)
+    if level_counts.shape != (n, int(upsampling_steps)):
+        raise ValueError(f"level_counts shape {level_counts.shape}")
+    idx = np.ascontiguousarray(np.asarray(idx).reshape(-1), dtype=np.int32)
+    vals = np.ascontiguousarray(np.asarray(vals).reshape(-1, 27),
+                                dtype=np.float32)
+    if len(idx) != len(vals) or len(idx) != int(level_counts.sum()):
+        raise ValueError(f"{len(idx)} ids, {len(vals)} value rows and "
+                         f"{int(level_counts.sum())} counted voxels")
+    vmask, vptr = _valid_mask(valid, n)
+    nv_per = np.zeros(n, np.int32)
+    nt_per = np.zeros(n, np.int32)
+    handle = lib.mise_mc_extract_batch(
+        lvl0s.ctypes.data_as(_F32P), n, int(resolution_0),
+        int(upsampling_steps), idx.ctypes.data_as(_I32P),
+        vals.ctypes.data_as(_F32P), level_counts.ctypes.data_as(_I32P),
+        ctypes.c_float(iso), ctypes.c_float(pad_val), vptr,
+        nv_per.ctypes.data_as(_I32P), nt_per.ctypes.data_as(_I32P))
+    return _split_batch(lib, handle, nv_per, nt_per)
+
+
+def voxelize_surface(verts, tris, origin, voxel_size, dims) -> np.ndarray:
+    """The cells of a `dims` grid (cell (i, j, k) spans origin + [i, i+1)
+    * voxel_size, ...) that a triangle of the mesh overlaps, as uint8."""
+    lib = get_lib()
+    verts = np.ascontiguousarray(verts, dtype=np.float64)
+    tris = np.ascontiguousarray(tris, dtype=np.int32)
+    origin = np.ascontiguousarray(origin, dtype=np.float64)
+    out = np.zeros(tuple(int(d) for d in dims), dtype=np.uint8)
+    lib.voxelize_surface(
+        verts.ctypes.data_as(_F64P), len(verts), tris.ctypes.data_as(_I32P),
+        len(tris), origin.ctypes.data_as(_F64P), ctypes.c_double(voxel_size),
+        *out.shape, out.ctypes.data_as(_U8P))
+    return out
+
+
+def fill_interior(surface: np.ndarray) -> np.ndarray:
+    """The cells that neither lie on the surface nor connect to the grid's
+    boundary through non-surface cells, as uint8."""
+    lib = get_lib()
+    surface = np.ascontiguousarray(surface, dtype=np.uint8)
+    out = np.zeros_like(surface)
+    lib.fill_interior(surface.ctypes.data_as(_U8P), *surface.shape,
+                      out.ctypes.data_as(_U8P))
+    return out
+
+
+class MiseNative:
+    """The C++ MISE octree of one proposal. Same contract as the Python
+    `meshing.mise.MISE` oracle: `query()` returns the unknown lattice
+    points (lexicographic order), `update(points, values)` stores logits
+    and advances the refinement frontier, `to_dense()` fills unknowns from
+    their coarsest known ancestor corner."""
+
+    def __init__(self, resolution_0: int, depth: int, threshold: float):
+        self._lib = get_lib()
+        self.res0 = int(resolution_0)
+        self.depth = int(depth)
+        self.R = self.res0 * 2 ** self.depth
+        self._h = ctypes.c_void_p(self._lib.mise_create(
+            self.res0, self.depth, ctypes.c_double(threshold)))
+
+    def query(self) -> np.ndarray:
+        n = self._lib.mise_query(self._h, _I64P(), 0)
+        out = np.empty((n, 3), dtype=np.int64)
+        if n:
+            self._lib.mise_query(self._h, out.ctypes.data_as(_I64P), n)
+        return out
+
+    def update(self, points: np.ndarray, values: np.ndarray) -> None:
+        points = np.ascontiguousarray(points, dtype=np.int64).reshape(-1, 3)
+        values = np.ascontiguousarray(values, dtype=np.float64).reshape(-1)
+        if len(points) != len(values):
+            raise ValueError(f"{len(points)} points, {len(values)} values")
+        self._lib.mise_update(self._h, points.ctypes.data_as(_I64P),
+                              values.ctypes.data_as(_F64P), len(points))
+
+    def done(self) -> bool:
+        return self._lib.mise_query(self._h, _I64P(), 0) == 0
+
+    def to_dense(self) -> np.ndarray:
+        out = np.empty((self.R + 1,) * 3, dtype=np.float32)
+        self._lib.mise_to_dense(self._h, out.ctypes.data_as(_F32P))
+        return out
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        self._h = None
+        if h:
+            self._lib.mise_destroy(h)

@@ -401,7 +401,7 @@ class ISCNet(nn.Module):
     def generate(self, data: dict, nms_iou=0.25, use_cls_nms=True,
                  dump_threshold=0.5, remove_empty_box=False,
                  export_voxels=True, decode_grid_res=None, grid_padding=0.1,
-                 marks=None):
+                 grid_sample: bool = False, marks=None):
         """Test-time forward: detection + NMS and, in the completion phase,
         completion conditioning. With `object_points` and
         `object_points_occ` in `data` (the GT objects' occupancy sets), also
@@ -410,7 +410,8 @@ class ISCNet(nn.Module):
         voxels as packed bits (`shape_voxels_bits`, (B*G, 512) uint8 in
         `np.packbits` order). With `decode_grid_res`, every selected
         proposal's dense occupancy logit grid (`grids`, (B*G, nx, nx,
-        nx)). `marks`: optional list that receives a recorded CUDA event
+        nx)), at the prior-mean z or, with `grid_sample`, at `sample_z`'s
+        draw. `marks`: optional list that receives a recorded CUDA event
         after each stage. Eval mode only."""
         if self.training:
             raise RuntimeError("ISCNet.generate runs in eval mode")
@@ -452,20 +453,45 @@ class ISCNet(nn.Module):
             Nb = gen["features"].shape[0]
             logits = self.decode_occupancy(
                 gen["features"], gen["cls_codes"],
-                pts[None].expand(Nb, -1, -1))
+                pts[None].expand(Nb, -1, -1), sample=grid_sample)
             out["grids"] = logits.reshape(Nb, nx, nx, nx)
             _mark(marks, "grid_decode")
         return out
 
     @torch.no_grad()
-    def decode_occupancy(self, features, cls_codes, points):
+    def decode_occupancy(self, features, cls_codes, points, z=None,
+                         sample: bool = False):
         """features (Nb, c_dim), cls_codes (Nb, num_class), points
-        (Nb, T, 3) -> logits (Nb, T), prior-mean z, through the fused
-        CBN decoder."""
+        (Nb, T, 3) -> logits (Nb, T), through the fused CBN decoder. z:
+        (Nb, z_dim) given, else with `sample` `sample_z`'s draw (the
+        `generation.use_sampling` option), else the prior mean."""
+        return self.occupancy_decoder(features, cls_codes, z, sample)(points)
+
+    @torch.no_grad()
+    def occupancy_decoder(self, features, cls_codes, z=None,
+                          sample: bool = False):
+        """`decode_occupancy` bound to one scene's proposals: the CBN tables
+        are folded once and z is drawn once, then the result decodes
+        points (k, T, 3) of proposals `rows` ((k,) int64, all when None)
+        -> logits (k, T), as often as needed (the MISE levels)."""
         c = self.completion._cond(features, cls_codes)
-        z = torch.zeros((c.shape[0], self.completion.z_dim),
-                        device=c.device)
-        return self.completion.decode_fused(points, z, c)
+        if z is None:
+            z = (self.sample_z(c.shape[0], c.device) if sample
+                 else torch.zeros((c.shape[0], self.completion.z_dim),
+                                  device=c.device))
+        bound = self.completion.bind_fused(z, c)
+
+        def decode(points, rows=None):
+            with torch.no_grad():
+                return bound(points, rows)
+
+        return decode
+
+    def sample_z(self, nb: int, device=None, seed: int = 42) -> torch.Tensor:
+        """One prior draw of z for each of nb proposals, (nb, z_dim), from a
+        CPU generator seeded `seed`: the same values on every device."""
+        g = torch.Generator().manual_seed(seed)
+        return torch.randn((nb, self.completion.z_dim), generator=g).to(device)
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:

@@ -57,20 +57,17 @@ class ONet(nn.Module):
         """The operands of `ops.fused_cbn_decode` for points p (Nb, T, 3),
         z (Nb, z_dim) and codes c: fc_p/fc_z output, folded CBN tables,
         stacked (in, out) block weights and biases, and the output layer."""
-        dec = self.decoder
-        scales, shifts = fold_cbn_constants(dec, c)
-        stack_w = lambda f: torch.stack(
-            [getattr(b, f).weight.T for b in dec.blocks]).contiguous()
-        stack_b = lambda f: torch.stack([getattr(b, f).bias for b in dec.blocks])
-        return (dec.first_layer(p, z).contiguous(), scales.contiguous(),
-                shifts.contiguous(), stack_w("fc_0"), stack_b("fc_0"),
-                stack_w("fc_1"), stack_b("fc_1"),
-                dec.fc_out.weight[0].contiguous(), dec.fc_out.bias)
+        return self.bind_fused(z, c).operands(p)
+
+    def bind_fused(self, z, c) -> "FusedDecoder":
+        """The fused decode of z (Nb, z_dim) and codes c (Nb, c_dim) with
+        its CBN tables and stacked weights folded once, for any number of
+        point sets."""
+        return FusedDecoder(self, z, c)
 
     def decode_fused(self, p, z, c):
         """`decode` through the fused kernel, in `mxu_dtype` operands."""
-        return fused_cbn_decode(*self.fused_operands(p, z, c),
-                                mxu_dtype=self.mxu_dtype)
+        return self.bind_fused(z, c)(p)
 
     def infer_z(self, p, occ, c):
         """Posterior (mean, logstd) of z, each (Nb, z_dim)."""
@@ -136,3 +133,34 @@ def _bce_with_logits(logits, targets):
     """Binary cross entropy with logits, elementwise (no reduction)."""
     return (torch.clamp(logits, min=0.0) - logits * targets
             + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+class FusedDecoder:
+    """`ONet.decode_fused` bound to one z and one set of codes: the CBN
+    tables and the stacked block weights are computed once, then each call
+    decodes points p (k, T, 3) of the proposals `rows` ((k,) int64, all
+    Nb when None) -> logits (k, T)."""
+
+    def __init__(self, onet: ONet, z, c):
+        dec = onet.decoder
+        self.decoder, self.mxu_dtype = dec, onet.mxu_dtype
+        scales, shifts = fold_cbn_constants(dec, c)
+        self.scales, self.shifts = scales.contiguous(), shifts.contiguous()
+        self.z = z
+        stack_w = lambda f: torch.stack(
+            [getattr(b, f).weight.T for b in dec.blocks]).contiguous()
+        stack_b = lambda f: torch.stack([getattr(b, f).bias for b in dec.blocks])
+        self.blocks = (stack_w("fc_0"), stack_b("fc_0"), stack_w("fc_1"),
+                       stack_b("fc_1"), dec.fc_out.weight[0].contiguous(),
+                       dec.fc_out.bias)
+
+    def operands(self, p, rows=None):
+        pick = (lambda t: t) if rows is None else (lambda t: t[rows])
+        z = None if self.z is None else pick(self.z)
+        return (self.decoder.first_layer(p, z).contiguous(),
+                pick(self.scales).contiguous(),
+                pick(self.shifts).contiguous(), *self.blocks)
+
+    def __call__(self, p, rows=None):
+        return fused_cbn_decode(*self.operands(p, rows),
+                                mxu_dtype=self.mxu_dtype)

@@ -19,6 +19,8 @@ Tolerances:
   equal.
 """
 
+import copy
+import functools
 import os
 import sys
 
@@ -35,6 +37,7 @@ from rfdnet_tpu.config.config import Config
 from rfdnet_tpu.models import ISCNet
 from rfdnet_tpu.models import proposal as jproposal
 from rfdnet_tpu_torch import cli, config as tconfig, demo, weights
+from rfdnet_tpu_torch.meshing.generator import Generator3D
 from rfdnet_tpu_torch.meshing.mesh import TriMesh
 from rfdnet_tpu_torch.models import ProposalModule
 from torch_parity import (
@@ -215,10 +218,23 @@ def test_generate_reuses_the_generator_and_times_the_host(pair, demo_outputs):
     assert np.abs(refit[0][corners] - parsed[corners]).max() > 0
     for k in ("obj_prob", "pred_mask"):
         assert_equal(refit[0][k], parsed[k], what=k)
-    sampled = tconfig.load_config(
-        {"generation": {"use_sampling": True}}, "demo")
-    with pytest.raises(NotImplementedError, match="MISE"):
-        demo.generate(sampled, pair[2], data)
+    # use_sampling: the meshes of one prior draw of z a proposal
+    sampled = copy.deepcopy(cfg)
+    sampled["generation"]["use_sampling"] = True
+    _, gen_s, meshes_s = demo.generate(sampled, pair[2], data)
+    assert_equal(gen_s["valid"], gen["valid"])
+    z = pair[2].sample_z(gen_s["features"].shape[0])
+    want = Generator3D(functools.partial(pair[2].decode_occupancy, z=z),
+                       resolution0=cfg["generation"]["resolution_0"]
+                       ).generate_meshes(gen_s["features"],
+                                         gen_s["cls_codes"],
+                                         valid=gen_s["valid"].reshape(-1))
+    assert any(len(m.faces) for m in meshes_s)
+    for a, b in zip(meshes_s, want):
+        np.testing.assert_array_equal(a.vertices, b.vertices)
+        np.testing.assert_array_equal(a.faces, b.faces)
+    assert any(not np.array_equal(a.vertices, b.vertices)
+               for a, b in zip(meshes_s, meshes) if len(a.faces))
 
 
 def test_generate_grids_and_generate_agree(pair, demo_outputs):

@@ -369,11 +369,13 @@ def test_cli_test_mode_refusals(small_yaml, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--config", small_yaml, "--mode", "test"])
+    # the mesh mAP, once refused, now turns on and dumps at conf_thresh
     cfg = tconfig.load_config(small_yaml, mode="test")
     cfg["test"]["evaluate_mesh_mAP"] = True
-    with pytest.raises(NotImplementedError, match="mesh_iou"):
-        tester.Tester(cfg, tconfig.build_model(cfg, generate_limit=2,
-                                               device="cpu"))
+    on = tester.Tester(cfg, tconfig.build_model(cfg, generate_limit=2,
+                                                device="cpu"))
+    assert on.evaluate_mesh_mAP
+    assert on.dump_threshold == on.eval_config["conf_thresh"]
 
 
 def test_grid_downloads_keep_their_own_buffers():

@@ -1,46 +1,22 @@
 """The training path of the port against `rfdnet_tpu`'s, on the CPU.
 
-Covered: train-mode batch norms, `nn_distance`, every term of the
-detection loss, the backward of each module in train mode, one train
-step of each training stage against `rfdnet_tpu.train.trainer.
-make_train_step`, the plateau and BN-momentum schedules, the dataset's
+Covered here: train-mode batch norms, `nn_distance`, every term of the
+detection loss, the plateau and BN-momentum schedules, the dataset's
 train-mode items and the loader's order, checkpoints, and the CLI's train
-mode followed by its test mode on the checkpoint it wrote.
+mode followed by its test mode on the checkpoint it wrote. The backward of
+each module in train mode is `test_torch_train_grads.py`, and one train step
+of each stage against `rfdnet_tpu.train.trainer.make_train_step` is
+`test_torch_train_step_stage{1,2,3}.py` (a file each, so that xdist's
+`--dist loadfile` spreads their JAX compiles over workers; shared set-up
+and the step check in `torch_parity`).
 
 Inputs are made with numpy from a seed; the flax variables come from
 `model.init` plus seeded noise and reach the port through
 `weights.from_flax` (`torch_parity`).
 
-Tolerances:
-- index outputs (FPS indices, selected proposals with their GT ids and
-  classes, nearest-neighbour indices) are exact;
-- losses use f32's atol 3e-5, rtol 2e-4 (`tests/test_parity_torch.py:41-42`);
-- module gradients in train mode: each parameter's gradient within a
-  relative L2 error of 1e-2 (GRAD_RTOL; PointSeg and skip propagation
-  GRAD_RTOL_POOLED: their STN heads batch-normalise a max-pooled feature
-  over 8 groups, whose mean dwarfs its spread, so the f32 variance
-  mean_sq - mean^2 keeps few digits in either package), for the parameters whose
-  gradient is not rounding noise (a gradient under NOISE_FLOOR times the
-  largest of its module is zero in exact arithmetic: the bias of a layer
-  that a train-mode batch norm follows, a shift the next batch norm
-  removes);
-- the whole train step (`STEP_*`): the scene points sit on a 1/128 grid,
-  so that every distance between them is exact in f32 and FPS, ball
-  query and three-NN see the same numbers in both packages. What stays
-  apart is the f32 rounding of the batch statistics: XLA's reductions on
-  the CPU and torch's sum in other orders (the port lands 3-8x nearer a
-  float64 run of itself than the JAX package does), and through ~20
-  train-mode batch norms that reaches ~5e-4 at the heads. There it moves
-  discrete choices whose margin is smaller: a ReLU input near 0, the
-  argmax of PointSeg's two nearly equal logits (random weights), a point
-  on a ball's radius. So the step's gradients (Adam's first moment) are
-  held per top-level module to a relative L2 error of STEP_GRAD_RTOL, the
-  updated parameters to Adam's bound (no parameter moves by more than
-  lr x its LR scale, so two updates differ by at most twice that) and
-  exactly to optax's Adam on the port's own gradients, and the running
-  statistics to STEP_STATS_ATOL / STEP_STATS_RTOL. The batches' seeds are
-  ones whose losses keep f32's tolerance: at other seeds a point on the
-  radius of a proposal's 1 m ball moves the mask loss by ~1e-3.
+Tolerances: index outputs (FPS indices, selected proposals with their GT
+ids and classes, nearest-neighbour indices) are exact; losses use f32's
+atol 3e-5, rtol 2e-4 (`tests/test_parity_torch.py:41-42`).
 """
 
 import json
@@ -49,7 +25,6 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 import yaml
@@ -61,10 +36,6 @@ from rfdnet_tpu.data.synthetic import synthetic_scene_batch
 from rfdnet_tpu.models import common as jcommon
 from rfdnet_tpu.models import layers as jlayers
 from rfdnet_tpu.models import losses as jlosses
-from rfdnet_tpu.models import pointseg as jpointseg
-from rfdnet_tpu.models import proposal as jproposal
-from rfdnet_tpu.models import skip_propagation as jskip
-from rfdnet_tpu.models import voting as jvoting
 from rfdnet_tpu.models.iscnet import select_completion_proposals as jselect
 from rfdnet_tpu.ops.nn_distance import huber_loss as jhuber
 from rfdnet_tpu.ops.nn_distance import nn_distance as jnn_distance
@@ -76,64 +47,16 @@ from rfdnet_tpu_torch.data.synthetic import write_scannet_scenes
 from rfdnet_tpu_torch.models import common as tcommon
 from rfdnet_tpu_torch.models import layers as tlayers
 from rfdnet_tpu_torch.models import losses as tlosses
-from rfdnet_tpu_torch.models import pointseg as tpointseg
-from rfdnet_tpu_torch.models import proposal as tproposal
-from rfdnet_tpu_torch.models import skip_propagation as tskip
-from rfdnet_tpu_torch.models import voting as tvoting
 from rfdnet_tpu_torch.models.iscnet import select_completion_proposals
 from rfdnet_tpu_torch.ops import nn_distance as tnn
 from rfdnet_tpu_torch.train import checkpoint as tcheckpoint
 from rfdnet_tpu_torch.train import trainer as ttrainer
 from rfdnet_tpu_torch.train.loop import Trainer
 from rfdnet_tpu_torch.weights import flax_flat, from_flax, init_seeded
-from torch_parity import assert_close, assert_equal, init_flax, perturb, t
+from torch_parity import (SMALL, assert_close, assert_equal, perturb,
+                          step_variables, t, torch_batch, train_configs)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GRAD_RTOL, NOISE_FLOOR = 1e-2, 1e-3
-# modules whose train-mode batch norms see a global max-pooled feature over
-# few samples (mean >> spread, so var = mean_sq - mean^2 cancels)
-GRAD_RTOL_POOLED = {"pointseg": 5e-2, "skip_propagation": 0.25}
-STEP_GRAD_RTOL = 0.3
-STEP_STATS_ATOL, STEP_STATS_RTOL = 0.05, 2e-2
-# the training configs at a CPU size: every width the configs set, cut
-SMALL = {"data": {"num_point": 1024, "num_target": 32, "c_dim": 64,
-                  "hidden_dim": 64, "z_dim": 8,
-                  "completion_limit_in_train": 4}}
-STAGES = {
-    "stage1_detection": ("iscnet_detection.yaml", {}, 1),
-    "stage2_completion_frozen": ("iscnet_completion.yaml", {}, 4),
-    "stage3_joint": ("iscnet.yaml", {
-        "optimizer": {"weight_decay": 1e-4},
-        "model": {"detection": {"optimizer": {"lr": 1e-5,
-                                              "weight_decay": 0}}}}, 4),
-}
-
-
-def grid_batch(seed: int, batch_size: int = 2, num_points: int = 1024):
-    """A synthetic batch whose scene points (and heights) lie on a 1/128
-    grid."""
-    b = synthetic_scene_batch(np.random.RandomState(seed),
-                              batch_size=batch_size, num_points=num_points,
-                              mean_size_arr=tconfig.MEAN_SIZE_ARR)
-    pc = b["point_clouds"]
-    pc[..., :3] = np.round(pc[..., :3] * 128) / 128
-    floor = np.percentile(pc[..., 2], 0.99, axis=1)[:, None]
-    pc[..., 3] = np.round((pc[..., 2] - floor) * 128) / 128
-    return b
-
-
-def torch_batch(batch):
-    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
-
-
-def rel_l2(got, want) -> float:
-    got = got.detach().cpu().numpy() if torch.is_tensor(got) else got
-    want = np.asarray(want)
-    return float(np.linalg.norm(got - want)
-                 / max(np.linalg.norm(want), 1e-30))
-
-
-# -------------------------------------------------------------- batch norm
 @pytest.mark.parametrize("kind", ["BatchNorm", "_AffinelessBatchNorm"])
 def test_batch_norm_train_mode(kind):
     """Outputs and running statistics of one train-mode call with momentum
@@ -262,252 +185,6 @@ def test_select_completion_proposals_matches_jax():
     assert_equal(got, want)
 
 
-# --------------------------------------------------------- module backward
-def _module_cases():
-    rng = np.random.RandomState(5)
-    xyz = rng.uniform(-2, 2, (2, 128, 3)).astype(np.float32)
-    feat = rng.randn(2, 128, 256).astype(np.float32)
-    cases = {}
-    cases["shared_mlp"] = (
-        jcommon.SharedMLP([16, 32]), tcommon.SharedMLP(8, [16, 32]),
-        (rng.randn(2, 64, 16, 8).astype(np.float32),), {})
-    cases["voting"] = (jvoting.VotingModule(), tvoting.VotingModule(),
-                       (xyz, feat), {})
-    for sampling in ("seed_fps", "vote_fps"):
-        cases[f"proposal_{sampling}"] = (
-            jproposal.ProposalModule(num_proposal=16, sampling=sampling),
-            tproposal.ProposalModule(num_proposal=16, sampling=sampling),
-            (xyz, feat, {"seed_xyz": xyz}), {})
-    cases["pointseg"] = (jpointseg.PointSeg(channel=4),
-                         tpointseg.PointSeg(channel=4),
-                         (rng.randn(8, 256, 4).astype(np.float32),), {})
-    b = grid_batch(6, num_points=1024)
-    P = 4
-    centers = (b["center_label"][:, :P]
-               + rng.randn(2, P, 3) * 0.05).astype(np.float32)
-    cases["skip_propagation"] = (
-        jskip.SkipPropagation(c_dim=64, hidden_dim=64),
-        tskip.SkipPropagation(c_dim=64, hidden_dim=64),
-        (centers, rng.uniform(-3, 3, (2, P)).astype(np.float32),
-         rng.randn(2, P, 128).astype(np.float32), b["point_clouds"],
-         b["point_instance_labels"], b["object_instance_labels"][:, :P]), {})
-    c = rng.randn(6, 64).astype(np.float32)
-    cases["decoder"] = (
-        jlayers.DecoderCBatchNorm(z_dim=8),
-        tlayers.DecoderCBatchNorm(c_dim=64, z_dim=8),
-        (rng.uniform(-0.55, 0.55, (6, 100, 3)).astype(np.float32),
-         rng.randn(6, 8).astype(np.float32), c), {})
-    return cases
-
-
-@pytest.mark.parametrize("name", sorted(_module_cases()))
-def test_module_gradients_in_train_mode(name):
-    """The gradient of a fixed random linear function of a module's
-    train-mode outputs with respect to its parameters."""
-    jm, tm, args, _ = _module_cases()[name]
-    jargs = [jax.tree_util.tree_map(jnp.asarray, a) for a in args]
-    variables = init_flax(jm, 7, *jargs, False)
-    rng = np.random.RandomState(8)
-
-    def outputs_j(params):
-        out, _ = jm.apply({"params": params,
-                           "batch_stats": variables["batch_stats"]},
-                          *jargs, True, 0.5, mutable=["batch_stats"])
-        if isinstance(out, tuple) and isinstance(out[0], dict):
-            out = (out[0]["center"], out[0]["objectness_scores"], out[1])
-        return [o for o in (out if isinstance(out, tuple) else (out,))
-                if o is not None and jnp.ndim(o) > 0] + (
-            [out[1]] if name == "skip_propagation" else [])
-
-    shapes = [np.shape(o) for o in outputs_j(variables["params"])]
-    weights = [np.asarray(rng.randn(*s), np.float32) for s in shapes]
-
-    def loss_j(params):
-        return sum(jnp.sum(o * w) for o, w in
-                   zip(outputs_j(params), weights))
-
-    want = from_flax({"params": jax.jit(jax.grad(loss_j))(
-        variables["params"])})
-    tm.load_state_dict(from_flax(variables))
-    tm.train()
-    tcommon.set_bn_momentum(tm, 0.5)
-    targs = [{k: t(v) for k, v in a.items()} if isinstance(a, dict) else t(a)
-             for a in args]
-    out = tm(*targs)
-    if isinstance(out, tuple) and isinstance(out[0], dict):
-        out = (out[0]["center"], out[0]["objectness_scores"], out[1])
-    outs = [o for o in (out if isinstance(out, tuple) else (out,))
-            if o is not None and o.dim() > 0] + (
-        [out[1]] if name == "skip_propagation" else [])
-    sum((o * t(w)).sum() for o, w in zip(outs, weights)).backward()
-    grads = dict(tm.named_parameters())
-    floor = NOISE_FLOOR * max(np.linalg.norm(want[n]) for n in grads)
-    checked = 0
-    for n, p in grads.items():
-        if np.linalg.norm(want[n]) > floor:
-            assert rel_l2(p.grad, want[n]) <= GRAD_RTOL_POOLED.get(
-                name, GRAD_RTOL), n
-            checked += 1
-    assert checked >= len(grads) // 2
-
-
-# ----------------------------------------------------------- one train step
-def _configs(stage):
-    name, extra, _ = STAGES[stage]
-    path = os.path.join(ROOT, "configs", name)
-    over = {**extra, "data": SMALL["data"]}
-    jcfg = Config(path, mode="train", make_dirs=False)
-    update_recursive(jcfg.config, over)
-    cfg = tconfig.load_config(path, mode="train")
-    tconfig.update_recursive(cfg, over)
-    return jcfg, cfg
-
-
-@pytest.fixture(scope="module")
-def step_variables():
-    """Perturbed flax variables of the small detection model and of the
-    small completion model (stages 2 and 3 share it)."""
-    out = {}
-    for phase, stage in (("detection", "stage1_detection"),
-                         ("completion", "stage3_joint")):
-        jcfg, _ = _configs(stage)
-        model = jcfg.build_model()
-        b = {k: jnp.asarray(v) for k, v in grid_batch(0).items()}
-        variables = jax.jit(lambda b: model.init(
-            jax.random.PRNGKey(0), b, train=False,
-            rng=jax.random.PRNGKey(1)))(b)
-        out[phase] = perturb(variables, 0)
-    return out
-
-
-def _adam_first_moments(opt_state) -> dict:
-    """{port parameter name: mu} of an optax state (chained or
-    partitioned)."""
-    out = {}
-    adam = optax.ScaleByAdamState
-    for s in jax.tree_util.tree_leaves(
-            opt_state, is_leaf=lambda x: isinstance(x, adam)):
-        if not isinstance(s, adam):
-            continue
-        out.update(from_flax({"params": _drop_masked(s.mu)}))
-    return out
-
-
-def _drop_masked(tree):
-    if isinstance(tree, optax.MaskedNode):
-        return None
-    if hasattr(tree, "items"):
-        kept = {k: _drop_masked(v) for k, v in tree.items()}
-        return {k: v for k, v in kept.items()
-                if v is not None and not (isinstance(v, dict) and not v)}
-    return tree
-
-
-@pytest.mark.parametrize("stage", sorted(STAGES))
-def test_train_step_matches_jax(stage, step_variables):
-    """One Adam step of a training stage from the same weights, batch and
-    posterior noise: FPS indices and selected proposals exact, losses at
-    f32's tolerance, gradients, parameters and running statistics as the
-    module docstring states; frozen modules keep their parameters."""
-    jcfg, cfg = _configs(stage)
-    model = jcfg.build_model()
-    variables = step_variables[model.phase]
-    seed = STAGES[stage][2]
-    batch = grid_batch(seed)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    key = jax.random.PRNGKey(seed)
-    lr = float(jcfg.config["optimizer"]["lr"])
-    bnm = jcfg.bn_momentum(0)
-    assert bnm == tconfig.bn_momentum(cfg, 0) == 0.5
-    frozen = tuple(jcfg.config["train"]["freeze"])
-    weight = jcfg.config["model"]["completion"]["weight"]
-    tx, scale_tree = jtrainer.make_optimizer_with_specs(
-        jcfg.config["optimizer"], jcfg.config["model"])
-    # the JAX CLI never sets ISCNet.frozen: frozen modules still train
-    # their batch norms, and only their updates are masked
-    step = jax.jit(jtrainer.make_train_step(
-        model, jcfg.dataset_config, tx, completion_weight=weight,
-        frozen=frozen, lr_scale_tree=scale_tree, jit=False))
-    state = jtrainer.TrainState(
-        step=jnp.int32(0), params=variables["params"],
-        batch_stats=variables["batch_stats"],
-        opt_state=tx.init(variables["params"]))
-    new, want = step(state, jb, key, jnp.float32(lr), jnp.float32(bnm))
-    (ep, _, _, jpids), _ = jax.jit(lambda v, b: model.apply(
-        v, b, train=True, bn_momentum=bnm, rng=key,
-        mutable=["batch_stats"]))(variables, jb)
-
-    port = tconfig.build_model(cfg, device="cpu", mode="train")
-    port.load_state_dict(from_flax(variables), strict=True)
-    trainer = Trainer(cfg, port)
-    assert trainer.frozen == frozen
-    tcommon.set_bn_momentum(port, bnm)
-    eps = None
-    if model.phase == "completion":
-        P = cfg["data"]["completion_limit_in_train"]
-        eps = t(jax.random.normal(jax.random.split(key)[1],
-                                  (2 * P, cfg["data"]["z_dim"])))
-    before = {k: v.clone() for k, v in port.state_dict().items()}
-    tb = torch_batch(batch)
-    with torch.no_grad():
-        port_probe = tconfig.build_model(cfg, device="cpu", mode="train")
-        port_probe.load_state_dict(before)
-        port_probe.train()
-        tcommon.set_bn_momentum(port_probe, bnm)
-        tep, _, _, tpids = port_probe(tb, eps=eps)
-    for k in ("sa1_inds", "sa2_inds", "fp2_inds", "aggregated_vote_inds"):
-        assert_equal(tep[k], ep[k], what=k)
-    if model.phase == "completion":
-        assert_equal(tpids, jpids, what="proposal_ids")
-
-    got = ttrainer.train_step(port, trainer.optimizer, tb, lr,
-                              trainer.completion_weight, eps=eps)
-    assert set(got) == set(want)
-    for k in want:
-        assert_close(got[k], want[k], what=k)
-
-    # gradients, as Adam's first moments (1 - b1) (g + wd p)
-    jmu = _adam_first_moments(new.opt_state)
-    mods = {}
-    for name, mu in zip(trainer.optimizer.names, trainer.optimizer.mu):
-        mods.setdefault(name.split(".")[0], []).append(
-            (mu.numpy().ravel(), np.asarray(jmu[name]).ravel()))
-    assert set(mods) == {n for n, _ in port.named_children()} - set(frozen)
-    for mod, pairs in mods.items():
-        got_g = np.concatenate([g for g, _ in pairs])
-        want_g = np.concatenate([w for _, w in pairs])
-        assert rel_l2(got_g, want_g) <= STEP_GRAD_RTOL, mod
-
-    # parameters: optax's Adam on the port's own gradients, and the bound
-    spec_of = ttrainer.make_optimizer_with_specs(cfg["optimizer"],
-                                                 cfg["model"])
-    after = port.state_dict()
-    jafter = from_flax({"params": new.params, "batch_stats": new.batch_stats})
-    for name, p in port.named_parameters():
-        root = name.split(".")[0]
-        if root in frozen:
-            assert p.grad is None
-            assert torch.equal(after[name], before[name]), name
-            assert_equal(jafter[name], before[name], what=name)
-            continue
-        s = spec_of(root)
-        g = p.grad.numpy()
-        adam = optax.chain(optax.add_decayed_weights(s.weight_decay),
-                           optax.scale_by_adam(*s.betas, eps=s.eps))
-        p0 = before[name].numpy()
-        u, _ = adam.update(g, adam.init(p0), p0)
-        expect = p0 + np.float32(-lr * s.lr_scale) * np.asarray(u)
-        assert_close(after[name], expect, atol=1e-7, rtol=1e-6, what=name)
-        bound = 2 * lr * s.lr_scale * (1 + 1e-3) + 1e-7
-        assert np.abs(after[name].numpy() - jafter[name].numpy()).max() \
-            <= bound, name
-    for name in after:
-        if "running" in name:
-            assert_close(after[name], jafter[name], atol=STEP_STATS_ATOL,
-                         rtol=STEP_STATS_RTOL, what=name)
-            assert not torch.equal(after[name], before[name]), name
-
-
 def test_step_generator_depends_on_its_place_only():
     from rfdnet_tpu_torch.train.loop import step_generator
 
@@ -539,7 +216,7 @@ def test_plateau_and_bn_momentum_over_60_epochs():
 
 
 def test_optimizer_specs_match_jax():
-    jcfg, cfg = _configs("stage3_joint")
+    jcfg, cfg = train_configs("stage3_joint")
     spec_of = ttrainer.make_optimizer_with_specs(cfg["optimizer"],
                                                  cfg["model"])
     assert spec_of("detection") == ttrainer.AdamSpec(
@@ -602,17 +279,18 @@ def _tiny_model(seed=0):
                                                 mode="train"), seed)
 
 
-def test_flax_flat_is_the_jax_layout(step_variables):
+def test_flax_flat_is_the_jax_layout():
     """`flax_flat` writes the flat flax paths of the JAX model's own
     variables, and `from_flax` reads them back unchanged."""
-    jcfg, cfg = _configs("stage3_joint")
+    jcfg, cfg = train_configs("stage3_joint")
     port = tconfig.build_model(cfg, device="cpu", mode="train")
-    port.load_state_dict(from_flax(step_variables["completion"]))
+    variables = step_variables("completion")
+    port.load_state_dict(from_flax(variables))
     flat = flax_flat(port)
     want = {}
     for kind in ("params", "batch_stats"):
         for path, leaf in jax.tree_util.tree_flatten_with_path(
-                step_variables["completion"][kind])[0]:
+                variables[kind])[0]:
             want["/".join((kind, *(p.key for p in path)))] = np.asarray(leaf)
     assert set(flat) == set(want)
     for k in want:

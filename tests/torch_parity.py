@@ -1,5 +1,6 @@
 """Shared set-up of the `test_torch_*` parity tests: one set of flax
-variables for both packages, and numpy inputs made from a seed.
+variables for both packages, numpy inputs made from a seed, and the
+training tests' configs, batches and one-step check.
 
 The flax variables come from `model.init` plus seeded numpy noise (the
 realistic-weights regime of `tests/test_cbn_decoder.py`: at init every
@@ -9,6 +10,7 @@ loads them through `weights.from_flax`.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import jax
@@ -16,14 +18,14 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from rfdnet_tpu.config.config import Config
+from rfdnet_tpu.config.config import Config, update_recursive
 from rfdnet_tpu.data.synthetic import synthetic_scene_batch
 from rfdnet_tpu.models import ISCNet
 from rfdnet_tpu_torch import config as tconfig
 from rfdnet_tpu_torch.weights import from_flax
 
-TEST_YAML = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "configs", "iscnet_test.yaml")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TEST_YAML = os.path.join(ROOT, "configs", "iscnet_test.yaml")
 
 # f32 module outputs (tests/test_parity_torch.py:41-42)
 ATOL, RTOL = 3e-5, 2e-4
@@ -121,3 +123,231 @@ def assert_equal(got, want, what=""):
     got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else got
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want),
                                   err_msg=what)
+
+
+# ------------------------------------------------------------- training
+# Shared by `test_torch_train*.py`. `check_train_step` holds one train step
+# of a stage against `rfdnet_tpu.train.trainer.make_train_step`. The scene
+# points sit on a 1/128 grid (`grid_batch`), so that every distance between
+# them is exact in f32 and FPS, ball query and three-NN see the same numbers
+# in both packages. What stays apart is the f32 rounding of the batch
+# statistics: XLA's reductions on the CPU and torch's sum in other orders
+# (the port lands 3-8x nearer a float64 run of itself than the JAX package
+# does), and through ~20 train-mode batch norms that reaches ~5e-4 at the
+# heads. There it moves discrete choices whose margin is smaller: a ReLU
+# input near 0, the argmax of PointSeg's two nearly equal logits (random
+# weights), a point on a ball's radius. So the step's gradients (Adam's
+# first moment) are held per top-level module to a relative L2 error of
+# STEP_GRAD_RTOL, the updated parameters to Adam's bound (no parameter moves
+# by more than lr x its LR scale, so two updates differ by at most twice
+# that) and exactly to optax's Adam on the port's own gradients, and the
+# running statistics to STEP_STATS_ATOL / STEP_STATS_RTOL. The batches'
+# seeds are ones whose losses keep f32's tolerance: at other seeds a point
+# on the radius of a proposal's 1 m ball moves the mask loss by ~1e-3.
+STEP_GRAD_RTOL = 0.3
+STEP_STATS_ATOL, STEP_STATS_RTOL = 0.05, 2e-2
+# the training configs at a CPU size: every width the configs set, cut
+SMALL = {"data": {"num_point": 1024, "num_target": 32, "c_dim": 64,
+                  "hidden_dim": 64, "z_dim": 8,
+                  "completion_limit_in_train": 4}}
+STAGES = {
+    "stage1_detection": ("iscnet_detection.yaml", {}, 1),
+    "stage2_completion_frozen": ("iscnet_completion.yaml", {}, 4),
+    "stage3_joint": ("iscnet.yaml", {
+        "optimizer": {"weight_decay": 1e-4},
+        "model": {"detection": {"optimizer": {"lr": 1e-5,
+                                              "weight_decay": 0}}}}, 4),
+}
+
+
+def grid_batch(seed: int, batch_size: int = 2, num_points: int = 1024):
+    """A synthetic batch whose scene points (and heights) lie on a 1/128
+    grid."""
+    b = synthetic_scene_batch(np.random.RandomState(seed),
+                              batch_size=batch_size, num_points=num_points,
+                              mean_size_arr=tconfig.MEAN_SIZE_ARR)
+    pc = b["point_clouds"]
+    pc[..., :3] = np.round(pc[..., :3] * 128) / 128
+    floor = np.percentile(pc[..., 2], 0.99, axis=1)[:, None]
+    pc[..., 3] = np.round((pc[..., 2] - floor) * 128) / 128
+    return b
+
+
+def torch_batch(batch):
+    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+
+
+def rel_l2(got, want) -> float:
+    got = got.detach().cpu().numpy() if torch.is_tensor(got) else got
+    want = np.asarray(want)
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-30))
+
+
+def train_configs(stage: str):
+    """(JAX Config, port config dict) of a training stage at SMALL's widths."""
+    name, extra, _ = STAGES[stage]
+    path = os.path.join(ROOT, "configs", name)
+    over = {**extra, "data": SMALL["data"]}
+    jcfg = Config(path, mode="train", make_dirs=False)
+    update_recursive(jcfg.config, over)
+    cfg = tconfig.load_config(path, mode="train")
+    tconfig.update_recursive(cfg, over)
+    return jcfg, cfg
+
+
+@functools.cache
+def step_variables(phase: str):
+    """Perturbed flax variables of the small detection model (`phase`
+    "detection") or of the small completion model ("completion", which
+    stages 2 and 3 share)."""
+    stage = {"detection": "stage1_detection",
+             "completion": "stage3_joint"}[phase]
+    jcfg, _ = train_configs(stage)
+    model = jcfg.build_model()
+    b = {k: jnp.asarray(v) for k, v in grid_batch(0).items()}
+    variables = jax.jit(lambda b: model.init(
+        jax.random.PRNGKey(0), b, train=False,
+        rng=jax.random.PRNGKey(1)))(b)
+    return perturb(variables, 0)
+
+
+def _adam_first_moments(opt_state) -> dict:
+    """{port parameter name: mu} of an optax state (chained or
+    partitioned)."""
+    import optax
+
+    out = {}
+    adam = optax.ScaleByAdamState
+    for s in jax.tree_util.tree_leaves(
+            opt_state, is_leaf=lambda x: isinstance(x, adam)):
+        if not isinstance(s, adam):
+            continue
+        out.update(from_flax({"params": _drop_masked(s.mu)}))
+    return out
+
+
+def _drop_masked(tree):
+    import optax
+
+    if isinstance(tree, optax.MaskedNode):
+        return None
+    if hasattr(tree, "items"):
+        kept = {k: _drop_masked(v) for k, v in tree.items()}
+        return {k: v for k, v in kept.items()
+                if v is not None and not (isinstance(v, dict) and not v)}
+    return tree
+
+
+def check_train_step(stage: str) -> None:
+    """One Adam step of a training stage from the same weights, batch and
+    posterior noise: FPS indices and selected proposals exact, losses at
+    f32's tolerance, gradients, parameters and running statistics as the
+    comment over this section states; frozen modules keep their
+    parameters. The body of each stage's `test_train_step_matches_jax`
+    (`tests/test_torch_train_step_stage*.py`, a file a stage, so that the
+    three JAX train-step compiles run on different workers)."""
+    import optax
+
+    from rfdnet_tpu.train import trainer as jtrainer
+    from rfdnet_tpu_torch.models import common as tcommon
+    from rfdnet_tpu_torch.train import trainer as ttrainer
+    from rfdnet_tpu_torch.train.loop import Trainer
+
+    jcfg, cfg = train_configs(stage)
+    model = jcfg.build_model()
+    variables = step_variables(model.phase)
+    seed = STAGES[stage][2]
+    batch = grid_batch(seed)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    key = jax.random.PRNGKey(seed)
+    lr = float(jcfg.config["optimizer"]["lr"])
+    bnm = jcfg.bn_momentum(0)
+    assert bnm == tconfig.bn_momentum(cfg, 0) == 0.5
+    frozen = tuple(jcfg.config["train"]["freeze"])
+    weight = jcfg.config["model"]["completion"]["weight"]
+    tx, scale_tree = jtrainer.make_optimizer_with_specs(
+        jcfg.config["optimizer"], jcfg.config["model"])
+    # the JAX CLI never sets ISCNet.frozen: frozen modules still train
+    # their batch norms, and only their updates are masked
+    step = jax.jit(jtrainer.make_train_step(
+        model, jcfg.dataset_config, tx, completion_weight=weight,
+        frozen=frozen, lr_scale_tree=scale_tree, jit=False))
+    state = jtrainer.TrainState(
+        step=jnp.int32(0), params=variables["params"],
+        batch_stats=variables["batch_stats"],
+        opt_state=tx.init(variables["params"]))
+    new, want = step(state, jb, key, jnp.float32(lr), jnp.float32(bnm))
+    (ep, _, _, jpids), _ = jax.jit(lambda v, b: model.apply(
+        v, b, train=True, bn_momentum=bnm, rng=key,
+        mutable=["batch_stats"]))(variables, jb)
+
+    port = tconfig.build_model(cfg, device="cpu", mode="train")
+    port.load_state_dict(from_flax(variables), strict=True)
+    trainer = Trainer(cfg, port)
+    assert trainer.frozen == frozen
+    tcommon.set_bn_momentum(port, bnm)
+    eps = None
+    if model.phase == "completion":
+        P = cfg["data"]["completion_limit_in_train"]
+        eps = t(jax.random.normal(jax.random.split(key)[1],
+                                  (2 * P, cfg["data"]["z_dim"])))
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    tb = torch_batch(batch)
+    with torch.no_grad():
+        port_probe = tconfig.build_model(cfg, device="cpu", mode="train")
+        port_probe.load_state_dict(before)
+        port_probe.train()
+        tcommon.set_bn_momentum(port_probe, bnm)
+        tep, _, _, tpids = port_probe(tb, eps=eps)
+    for k in ("sa1_inds", "sa2_inds", "fp2_inds", "aggregated_vote_inds"):
+        assert_equal(tep[k], ep[k], what=k)
+    if model.phase == "completion":
+        assert_equal(tpids, jpids, what="proposal_ids")
+
+    got = ttrainer.train_step(port, trainer.optimizer, tb, lr,
+                              trainer.completion_weight, eps=eps)
+    assert set(got) == set(want)
+    for k in want:
+        assert_close(got[k], want[k], what=k)
+
+    # gradients, as Adam's first moments (1 - b1) (g + wd p)
+    jmu = _adam_first_moments(new.opt_state)
+    mods = {}
+    for name, mu in zip(trainer.optimizer.names, trainer.optimizer.mu):
+        mods.setdefault(name.split(".")[0], []).append(
+            (mu.numpy().ravel(), np.asarray(jmu[name]).ravel()))
+    assert set(mods) == {n for n, _ in port.named_children()} - set(frozen)
+    for mod, pairs in mods.items():
+        got_g = np.concatenate([g for g, _ in pairs])
+        want_g = np.concatenate([w for _, w in pairs])
+        assert rel_l2(got_g, want_g) <= STEP_GRAD_RTOL, mod
+
+    # parameters: optax's Adam on the port's own gradients, and the bound
+    spec_of = ttrainer.make_optimizer_with_specs(cfg["optimizer"],
+                                                 cfg["model"])
+    after = port.state_dict()
+    jafter = from_flax({"params": new.params, "batch_stats": new.batch_stats})
+    for name, p in port.named_parameters():
+        root = name.split(".")[0]
+        if root in frozen:
+            assert p.grad is None
+            assert torch.equal(after[name], before[name]), name
+            assert_equal(jafter[name], before[name], what=name)
+            continue
+        s = spec_of(root)
+        g = p.grad.numpy()
+        adam = optax.chain(optax.add_decayed_weights(s.weight_decay),
+                           optax.scale_by_adam(*s.betas, eps=s.eps))
+        p0 = before[name].numpy()
+        u, _ = adam.update(g, adam.init(p0), p0)
+        expect = p0 + np.float32(-lr * s.lr_scale) * np.asarray(u)
+        assert_close(after[name], expect, atol=1e-7, rtol=1e-6, what=name)
+        bound = 2 * lr * s.lr_scale * (1 + 1e-3) + 1e-7
+        assert np.abs(after[name].numpy() - jafter[name].numpy()).max() \
+            <= bound, name
+    for name in after:
+        if "running" in name:
+            assert_close(after[name], jafter[name], atol=STEP_STATS_ATOL,
+                         rtol=STEP_STATS_RTOL, what=name)
+            assert not torch.equal(after[name], before[name]), name
