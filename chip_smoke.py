@@ -6,8 +6,8 @@ It needs one CUDA card and exits nonzero, printing no result, without one.
 Phases, each printing one JSON line; any failure ends the run nonzero:
 
 1. device: the card's name and power limit (`nvidia-smi`), then both
-   CUDA kernels (`nvcc`) and the host marching cubes (`g++`) built from
-   `rfdnet_tpu_torch/csrc/` at once, with each kernel instantiation's
+   CUDA kernels (`nvcc`) and the host libraries (`g++`: the meshing and
+   the QEM simplification) built from `rfdnet_tpu_torch/csrc/` at once, with each kernel instantiation's
    registers and spills as `ptxas` reports them (every route of
    `fps_route` must find its one instantiation there, with no spill).
 2. fps: the FPS kernels against the plain torch version (indices equal)
@@ -51,7 +51,7 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    the iso level everywhere, the others counted.
 7. mise: a copy of `configs/iscnet_test.yaml` with `upsampling_steps: 2`
    (Occupancy Networks' generation setting: resolution_0 32, two steps,
-   R = 128) and this script's seed, on the demo scene at full width: ten
+   R = 128) and this script's seed, on the demo scene at full width: five
    `demo.generate` scenes after a warm-up through the device octree, with
    scene latency to the meshes, per level the active voxels, decoded
    points and CBN launches, the octree's device time (CUDA events), the
@@ -68,20 +68,35 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    proposal, the same draw on both devices) the dense grids within
    tolerance. Then `cli.main --mode demo` on the copy: its meshes read back
    and closed, the same launches.
-8. demo: `rfdnet_tpu_torch.cli.main --mode demo` on the demo scene with a
+8. mesh_options: `Generator3D`'s options at full width, the test config
+   with refine 30 steps, simplify to 5000 faces and normals, through
+   `demo.generate` (a warm-up, two timed scenes): the latency split into
+   grid decode, extraction, simplify, refine and normals, triangles
+   before and after simplify, refine's first and last loss, unit normals,
+   launches FPS 5 / CBN 1; marching tetrahedra on the same grids
+   (triangles, time, closed); refine (the same draws) and normals of three
+   meshes of a 4096-point scene on the card against the CPU.
+9. modules: `SetAbstractionMSG` at SA1's shape (80000 -> 2048, two
+   radii) against the CPU, and the main path to the grids with
+   `data.mlp_bf16` against f32, in turns, with the bf16 run's launches.
+10. demo: `rfdnet_tpu_torch.cli.main --mode demo` on the demo scene with a
    copy of `configs/iscnet_test.yaml` (its seed set to this script's, at
    which the seeded weights leave valid slots), in a temporary directory;
-   the files it wrote are read back.
-9. detection: `configs/iscnet_detection.yaml` (`vote_fps`, no completion)
+   the files it wrote are read back (`scene.html` and `pred.png` among
+   them, the HTML's point, mesh and box counts equal to the dumps', no
+   "export failed" printed); then the same run with `--profile DIR`,
+   whose trace must name both kernels' CUDA functions.
+11. detection: `configs/iscnet_detection.yaml` (`vote_fps`, no completion)
    at full width, three scenes after a warm-up, with stage times; on 4096
    points the sampling indices and NMS keep mask equal a CPU run's.
-10. tester: three full-width synthetic scenes written in the dataset's
+12. tester: three full-width synthetic scenes written in the dataset's
    on-disk layout (80000 points, 12 objects each, a watertight GT mesh
    each) and a copy of `configs/iscnet_test.yaml` pointing at them (seed
    as in `demo`, `evaluate_mesh_mAP: true`): `rfdnet_tpu_torch.cli.main
    --mode test` on the card (metrics with `mAP_mesh` and `AR_mesh`, the
-   dumps read back and their meshes closed, launches counted: FPS 5 and
-   CBN 3 a scene); the Tester's scene time (`wall_scene_ms`) and stages
+   dumps read back and their meshes closed, each scene's `scene.html`
+   counts equal to its dumps', no "export failed" printed, launches
+   counted: FPS 5 and CBN 3 a scene); the Tester's scene time (`wall_scene_ms`) and stages
    without the mesh mAP, with a scene in flight and without, then once
    with it (its `voxelize` stage and `compute_metrics_ms`); the
    CBN kernel against its plain
@@ -93,7 +108,7 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    refit boxes close where both meshes are equal. Then `--mode test` on a
    copy with `upsampling_steps: 2` (`tester_mise`): the octree on the card
    at every scene, metrics with the mesh mAP, dumps read back and closed.
-11. train: eight full-width synthetic scenes (80000 points, 12 objects)
+13. train: eight full-width synthetic scenes (80000 points, 12 objects)
    in the dataset's layout, listed in both the train and the val split,
    and a copy of `configs/iscnet.yaml` (stage 3) with `finetune: false`,
    `weight: []`, `epochs: 3` and this script's seed: `rfdnet_tpu_torch.
@@ -102,11 +117,17 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    loss term (all finite), the kernel launches (FPS 5 and CBN 0 a train
    step, FPS 5 and CBN 1 a val step); peak device memory; `model_best`
    and `model_last` load through `weights.load_npz`; a fourth epoch with
-   `resume: true` starts from epoch 3. Then stages 1
+   `resume: true` starts from epoch 3 (these runs read their items on the
+   CLI's default route, threads). Then stages 1
    (`iscnet_detection.yaml`, `vote_fps`) and 2 (`iscnet_completion.yaml`,
    finetuned from stage 1's `model_best`, backbone/voting/detection
-   frozen) one step each at 4096 points, batch 2; and one stage-3 train
-   step at 4096 points on the card against the CPU (`train_reference`).
+   frozen) one step each at 4096 points, batch 2; one stage-3 train
+   step at 4096 points on the card against the CPU (`train_reference`);
+   and the `loader` line: one pass over the eight train items with 8
+   workers for each route (threads, then processes: the pool's first
+   pass and a second), the items equal, and a four-epoch stage-3 run at
+   batch 8 (four train steps) for each route (`device.worker_type`) with
+   its loader wait a step.
 Then the `kernels` summary line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -118,6 +139,7 @@ outside the tensor cores, 989 TFLOP/s bf16), NVIDIA's H100 SXM figures.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -611,6 +633,208 @@ def phase_slice(model, data, cfg, scenes: int = 10):
             grids.cpu().numpy(), gen_m["valid"].reshape(-1), meshes)
 
 
+MESH_OPTIONS = {"refinement_step": 30, "simplify_nfaces": 5000,
+                "with_normals": True}
+# refine on the card against the CPU (same draws): vertices, and normals
+REFINE_ATOL, NORMAL_ATOL = 1e-5, 1e-4
+
+
+def phase_mesh_options(model, data, scenes: int = 2):
+    """`Generator3D`'s options at full width: the test config with
+    `MESH_OPTIONS` through `demo.generate` on the demo scene (a warm-up,
+    then `scenes` timed scenes): the latency split into grid decode,
+    extraction, simplify, refine and normals; triangles before and after
+    simplify; refine's first and last loss; unit normals; the launches.
+    Then marching tetrahedra on the same grids, and refine and normals on
+    a 4096-point scene on the card against the CPU."""
+    import numpy as np
+
+    from rfdnet_tpu_torch import config, demo
+    from rfdnet_tpu_torch.meshing.generator import Generator3D
+
+    cfg = config.load_config(TEST_YAML, mode="test")
+    cfg["generation"].update(MESH_OPTIONS)
+    gen = demo.make_generator(cfg, model)
+    runs = []
+
+    def scene(marks):
+        host = {}
+        out = demo.generate(cfg, model, data, generator=gen, marks=marks,
+                            host_ms=host)
+        runs.append(dict(gen.last_ms, d2h=host["d2h"], mesh=host["mesh"],
+                         losses=gen.refine_losses))
+        return out
+
+    res = timed_scenes(scene, scenes)
+    parsed, out_gen, meshes = res.pop("first")
+    runs = runs[1:]
+    valid = out_gen["valid"].reshape(-1)
+    # the same scene's grids, extracted without the options
+    grids = demo.generate_grids(cfg, model, data["point_clouds"])[3]
+    grids = grids.cpu().numpy()
+    plain = Generator3D(None).meshes_from_grids(grids, valid)
+    before = sum(len(m.faces) for m in plain)
+    after = sum(len(m.faces) for m in meshes)
+    norms = [np.linalg.norm(m.vertex_normals, axis=1) for m in meshes
+             if len(m.vertices)]
+    norm_err = max(float(np.abs(n - 1).max()) for n in norms)
+    t0 = time.perf_counter()
+    tetra = Generator3D(None, extractor="marching_tetrahedra"
+                        ).meshes_from_grids(grids, valid)
+    tetra_ms = (time.perf_counter() - t0) * 1e3
+    tetra_triangles = sum(len(m.faces) for m in tetra)
+    stage = {k: spread([r[k] for r in runs]) for k in (
+        "extract", "simplify", "refine", "normals", "d2h", "mesh")}
+    reference = mesh_options_reference(model, cfg)
+    emit(phase="mesh_options", options=MESH_OPTIONS, scenes=scenes,
+         valid=int(valid.sum()), wall_ms=res["wall_ms"],
+         wall_ms_min=res["wall_ms_min"], wall_ms_max=res["wall_ms_max"],
+         device_stage_ms=res["stage_ms"], host_stage_ms=stage,
+         triangles_before_simplify=before, triangles_after_simplify=after,
+         refine_loss=[r["losses"] for r in runs], normal_norm_err=norm_err,
+         launches=res["launches"], marching_tetrahedra=dict(
+             triangles=tetra_triangles, ms=tetra_ms,
+             open_edges=closed_meshes(tetra),
+             marching_cubes_triangles=before),
+         reference=reference)
+    check(res["launches"] == {"fps": 5, "cbn_decode": 1},
+          f"mesh_options: launches {res['launches']}")
+    check(0 < after < before and all(
+        len(m.faces) < len(p.faces) for m, p in zip(meshes, plain)
+        if len(p.faces) > MESH_OPTIONS["simplify_nfaces"]),
+        f"mesh_options: {before} triangles, {after} after simplify")
+    check(all(np.isfinite(r["losses"]).all() for r in runs),
+          "mesh_options: refine's loss is not finite")
+    check(norm_err <= 1e-5, f"mesh_options: normals off unit by {norm_err}")
+    check(tetra_triangles > before and closed_meshes(tetra) == 0,
+          f"mesh_options: marching tetrahedra {tetra_triangles} triangles")
+    return res["launches"]
+
+
+def mesh_options_reference(model, cfg, num_points: int = 4096,
+                           meshes: int = 3, faces: int = 1000) -> dict:
+    """Refine (30 steps, the same draws) and normals of `meshes` meshes of
+    a `num_points`-point scene, simplified to about `faces` faces, on the
+    card and on the CPU from the same base meshes and codes: vertices
+    within REFINE_ATOL, normals within NORMAL_ATOL."""
+    import copy
+
+    import numpy as np
+
+    from rfdnet_tpu_torch import demo
+    from rfdnet_tpu_torch.meshing.generator import Generator3D, dirichlet_draws
+    from rfdnet_tpu_torch.meshing.mesh import TriMesh
+    from rfdnet_tpu_torch.meshing.native import simplify_mesh
+
+    data = demo.load_demo_data(SCENE, num_points=num_points,
+                               device=next(model.parameters()).device)
+    _, _, gen, grids = demo.generate_grids(cfg, model, data["point_clouds"])
+    valid = gen["valid"].reshape(-1).cpu().numpy()
+    base = Generator3D(None).meshes_from_grids(grids.cpu().numpy(), valid)
+    rows = [i for i, m in enumerate(base) if len(m.faces)][:meshes]
+    picked = [TriMesh(*simplify_mesh(base[i].vertices, base[i].faces, faces,
+                                     5.0)) for i in rows]
+    steps = MESH_OPTIONS["refinement_step"]
+    eps = dirichlet_draws(steps, max(len(m.faces) for m in picked))[:, None]
+    cpu_model = copy.deepcopy(model).to("cpu")
+    out = {}
+    for name, m in (("card", model), ("cpu", cpu_model)):
+        d = next(m.parameters()).device
+        f, c = gen["features"].to(d), gen["cls_codes"].to(d)
+        g = Generator3D(None)
+        decode = m.gradient_decoder(f, c)
+        refined = g.refine_meshes(picked, rows, decode, steps, eps=eps,
+                                  device=d)
+        normals = g.estimate_normals([r.vertices for r in refined], rows,
+                                     decode, d)
+        out[name] = (refined, normals, g.refine_losses)
+    vert_err = max(float(np.abs(a.vertices - b.vertices).max())
+                   for a, b in zip(out["card"][0], out["cpu"][0]))
+    normal_err = max(float(np.abs(a - b).max())
+                     for a, b in zip(out["card"][1], out["cpu"][1]))
+    moved = max(float(np.abs(a.vertices - b.vertices).max())
+                for a, b in zip(out["card"][0], picked))
+    check(vert_err <= REFINE_ATOL,
+          f"mesh_options reference: refined vertices {vert_err} apart")
+    check(normal_err <= NORMAL_ATOL,
+          f"mesh_options reference: normals {normal_err} apart")
+    check(moved > 0, "mesh_options reference: refine moved nothing")
+    return dict(points=num_points, meshes=len(picked),
+                faces=[len(m.faces) for m in picked], steps=steps,
+                vertex_err=vert_err, normal_err=normal_err, moved=moved,
+                losses={k: v[2] for k, v in out.items()})
+
+
+def phase_modules(model, data, scenes: int = 3):
+    """The modules no config selects, on the card: `SetAbstractionMSG` at
+    SA1's shape (80000 -> 2048, radii 0.1 and 0.2) against the CPU (FPS
+    indices equal, ball-query indices compared, features of the centers
+    whose groups agree within f32 tolerance); then the full-width scene
+    to the grids with `data.mlp_bf16` against f32, in turns, and the bf16
+    run's launches."""
+    import copy
+
+    from rfdnet_tpu_torch import config, demo, weights
+    from rfdnet_tpu_torch.models import SetAbstractionMSG
+    from rfdnet_tpu_torch.ops import ball_query
+
+    dev = next(model.parameters()).device
+    pc = data["point_clouds"]
+    msg = weights.init_seeded(SetAbstractionMSG(
+        2048, (0.1, 0.2), (16, 32), 1, ((32, 32, 64), (64, 64, 128))),
+        SEED).to(dev).eval()
+    xyz, feats = pc[..., :3].contiguous(), pc[..., 3:4].contiguous()
+    with torch.no_grad():
+        reset_launches()
+        new_xyz, new_feat, inds = msg(xyz, feats)
+        msg_launches = read_launches()
+        msg_ms = cuda_ms(lambda: msg(xyz, feats), reps=3)
+        cpu = copy.deepcopy(msg).to("cpu")
+        c_xyz, c_feat, c_inds = cpu(xyz.cpu(), feats.cpu())
+        agree = torch.ones(new_xyz.shape[1], dtype=torch.bool)
+        for r, ns in zip(msg.radii, msg.nsamples):
+            agree &= (ball_query(xyz, new_xyz, r, ns).cpu()
+                      == ball_query(xyz.cpu(), c_xyz, r, ns)).all(-1)[0]
+    got, want = new_feat.cpu()[0, agree], c_feat[0, agree]
+    feat_err = float((got - want).abs().max())
+    feat_ok = bool(torch.allclose(got, want, atol=3e-5, rtol=2e-4))
+
+    bf16_cfg = copy.deepcopy(config.TEST_CONFIG)
+    bf16_cfg["data"]["mlp_bf16"] = True
+    bf16 = weights.init_seeded(config.build_model(bf16_cfg, device=dev), SEED)
+    runs = {}
+    for name, m in (("f32", model), ("bf16", bf16), ("bf16_2", bf16),
+                    ("f32_2", model)):
+        runs[name] = timed_scenes(lambda marks, m=m: demo.generate_grids(
+            config.TEST_CONFIG, m, pc, marks=marks), scenes)
+    g32, g16 = runs["f32"].pop("first")[3], runs["bf16"].pop("first")[3]
+    for r in runs.values():
+        r.pop("first", None)
+    emit(phase="modules", msg=dict(
+        shape=[int(xyz.shape[1]), 2048], radii=list(msg.radii),
+        nsamples=list(msg.nsamples), features=int(new_feat.shape[-1]),
+        ms=msg_ms, launches=msg_launches,
+        indices_equal=bool(torch.equal(inds.cpu(), c_inds)),
+        groups_agree=int(agree.sum()), feature_err=feat_err),
+         mlp_bf16={name: dict(wall_ms=r["wall_ms"], wall_ms_min=r[
+             "wall_ms_min"], wall_ms_max=r["wall_ms_max"],
+             stage_ms=r["stage_ms"], launches=r["launches"])
+             for name, r in runs.items()},
+         bf16_grid_max_diff=float((g16 - g32).abs().max()),
+         bf16_finite=bool(torch.isfinite(g16).all()))
+    check(torch.equal(inds.cpu(), c_inds),
+          "modules: SetAbstractionMSG's FPS indices differ from the CPU's")
+    check(agree.float().mean() > 0.99 and feat_ok,
+          f"modules: SetAbstractionMSG features {feat_err} apart on "
+          f"{int(agree.sum())} agreeing groups")
+    check(msg_launches == {"fps": 1, "cbn_decode": 0},
+          f"modules: SetAbstractionMSG launches {msg_launches}")
+    check(bool(torch.isfinite(g16).all()), "modules: bf16 grids not finite")
+    check(runs["bf16"]["launches"] == {"fps": 5, "cbn_decode": 1},
+          f"modules: mlp_bf16 launches {runs['bf16']['launches']}")
+    return {"msg": msg_launches, "mlp_bf16": runs["bf16"]["launches"]}
+
+
 def meshes_equal(a, b) -> bool:
     import numpy as np
 
@@ -937,7 +1161,7 @@ def mise_reference(cfg, model, num_points: int = 4096) -> dict:
                 sampled_grid_err=sample_err, sampled_off_prior=off_prior)
 
 
-def phase_mise(model, data, scenes: int = 10, reps: int = 3):
+def phase_mise(model, data, scenes: int = 5, reps: int = 3):
     """MISE at full width (see the module docstring). Returns (launches
     of one scene, the CBN kernel's rows at the level shapes)."""
     import numpy as np
@@ -1081,9 +1305,67 @@ def phase_mise(model, data, scenes: int = 10, reps: int = 3):
     return run["launches"], cbn
 
 
+class Tee:
+    """A stdout that also keeps what is written (`text()`)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def run_logged(fn):
+    """fn() with stdout kept: (its result, what it printed)."""
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = fn()
+    return out, tee.text()
+
+
+def html_counts(path: str) -> dict:
+    """The element counts embedded in a `scene.html`: points, mesh
+    vertices (3 a triangle) and box line ends (24 a box), of each scene."""
+    with open(path) as f:
+        html = f.read()
+    check(os.path.getsize(path) > 0, f"{path} is empty")
+    start = html.index('{"scenes"')
+    payload = json.JSONDecoder().raw_decode(html[start:])[0]
+    return {name: {k: v["n"] for k, v in scene.items()}
+            for name, scene in payload["scenes"].items()}
+
+
+def check_html(path: str, points: int, triangles: int, what: str) -> dict:
+    """`scene.html` holds the scan's points and the dumped meshes' faces,
+    and whole boxes."""
+    counts = html_counts(path)["scene"]
+    check(counts["points"] == points and counts["mesh"] == 3 * triangles
+          and counts["box_lines"] % 24 == 0,
+          f"{what}: scene.html counts {counts}, expected {points} points "
+          f"and {3 * triangles} mesh vertices")
+    return counts
+
+
+def trace_kernels(path: str) -> list:
+    """The CUDA kernel names of a Chrome trace, sorted."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted({e["name"] for e in events
+                   if e.get("cat") == "kernel" and "name" in e})
+
+
 def phase_demo():
     """The CLI in demo mode at full width, in a temporary directory: the
-    files of `demo.save_visualization`, read back."""
+    files of `demo.save_visualization` and `pred.png`, read back, the
+    `scene.html` counts against the dumps; then the CLI again with
+    `--profile`, whose trace must name both kernels."""
     import numpy as np
 
     from rfdnet_tpu_torch import cli, config
@@ -1102,13 +1384,15 @@ def phase_demo():
         try:
             reset_launches()
             t0 = time.perf_counter()
-            out_dir = cli.main(["--config", cfg_path, "--mode", "demo",
-                                "--demo_path", SCENE])
+            out_dir, printed = run_logged(lambda: cli.main([
+                "--config", cfg_path, "--mode", "demo", "--demo_path",
+                SCENE]))
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
             launches = read_launches()
             out_dir = os.path.abspath(out_dir)
             files = sorted(os.listdir(out_dir))
+            png_bytes = os.path.getsize(os.path.join(out_dir, "pred.png"))
             bbox = np.load(os.path.join(
                 out_dir, "000000_pred_confident_nms_bbox.npz"))
             obbs, proposal_map = bbox["obbs"], bbox["proposal_map"]
@@ -1119,20 +1403,42 @@ def phase_demo():
                 mesh = TriMesh.load(os.path.join(out_dir, name))
                 triangles += len(mesh.faces)
                 finite = finite and bool(np.isfinite(mesh.vertices).all())
+            html = check_html(os.path.join(out_dir, "scene.html"),
+                              len(scan.vertices), triangles, "demo")
+            check(html["box_lines"] == 24 * len(obbs),
+                  f"demo: scene.html boxes {html}, {len(obbs)} in the npz")
+            # the same run traced
+            t0 = time.perf_counter()
+            cli.main(["--config", cfg_path, "--mode", "demo", "--demo_path",
+                      SCENE, "--profile", os.path.join(tmp, "profile")])
+            profile_s = time.perf_counter() - t0
+            trace = os.path.join(tmp, "profile", "trace.json")
+            trace_bytes = os.path.getsize(trace)
+            kernels = trace_kernels(trace)
         finally:
             os.chdir(cwd)
     ids = {int(name.split("_")[1]) for name in plys}
+    traced = {k: [n for n in kernels if k in n] for k in (
+        "fps_resident", "cbn_decode_kernel")}
     emit(phase="demo", wall_s=wall_s, launches=launches, files=len(files),
          mesh_files=len(plys), boxes=list(obbs.shape),
          proposal_map=list(proposal_map.shape),
-         scan_vertices=len(scan.vertices), triangles=triangles)
+         scan_vertices=len(scan.vertices), triangles=triangles,
+         scene_html=html, pred_png_bytes=png_bytes, profile_s=profile_s,
+         trace_bytes=trace_bytes, trace_kernels=len(kernels),
+         traced=traced)
+    check("export failed" not in printed, "demo: an export failed")
+    check(png_bytes > 0, "demo: empty pred.png")
+    check(all(traced.values()),
+          f"demo --profile: the trace names no kernel of {traced}")
     k = obbs.shape[0]
     check(k > 0 and obbs.shape == (k, 7) and proposal_map.shape == (k, 1),
           f"demo: obbs {obbs.shape}, proposal_map {proposal_map.shape}")
     check(bool(np.isfinite(obbs).all()), "demo: non-finite boxes")
     check(len(scan.vertices) == points and len(scan.faces) == 0,
           f"demo: the scan's PLY holds {len(scan.vertices)} vertices")
-    check(len(files) == 2 + len(plys), f"demo: unexpected files {files}")
+    check(len(files) == 4 + len(plys) and "scene.html" in files
+          and "pred.png" in files, f"demo: unexpected files {files}")
     check(0 < len(plys) <= k and ids <= set(proposal_map[:, 0].tolist()),
           f"demo: {len(plys)} mesh files for {k} boxes")
     check(triangles > 0 and finite, "demo: empty or non-finite meshes")
@@ -1217,15 +1523,16 @@ def read_test_dumps(root: str, points: int, objects: int) -> dict:
 
     scenes = sorted(os.listdir(root))
     check(len(scenes) == TESTER_SCENES, f"tester: dumps of {scenes}")
-    mesh_files = triangles = 0
+    mesh_files = triangles = html_files = 0
     for scene in scenes:
         d = os.path.join(root, scene)
         files = os.listdir(d)
         for name in ("000000_pc.ply", "000000_pred_confident_nms_bbox.ply",
-                     "pred_map_cls.txt", "gt_map_cls.txt"):
+                     "pred_map_cls.txt", "gt_map_cls.txt", "scene.html"):
             check(name in files, f"tester: {scene} has no {name}")
         scan = TriMesh.load(os.path.join(d, "000000_pc.ply"))
         check(len(scan.vertices) == points, f"tester: {scene}'s scan")
+        scene_triangles = 0
         with open(os.path.join(d, "gt_map_cls.txt")) as f:
             check(len(f.read().split("\n")) - 1 == objects,
                   f"tester: {scene}'s GT boxes")
@@ -1235,10 +1542,14 @@ def read_test_dumps(root: str, points: int, objects: int) -> dict:
                 check(len(mesh.faces) > 0 and bool(np.isfinite(
                     mesh.vertices).all()), f"tester: {scene}/{name}")
                 mesh_files += 1
-                triangles += len(mesh.faces)
+                scene_triangles += len(mesh.faces)
+        triangles += scene_triangles
+        check_html(os.path.join(d, "scene.html"), points, scene_triangles,
+                   f"tester: {scene}")
+        html_files += 1
     check(mesh_files > 0, "tester: no mesh written")
     return dict(scenes=len(scenes), mesh_files=mesh_files,
-                triangles=triangles)
+                triangles=triangles, html_files=html_files)
 
 
 def cli_test(cfg_path: str, cwd: str):
@@ -1253,12 +1564,14 @@ def cli_test(cfg_path: str, cwd: str):
     try:
         reset_launches()
         t0 = time.perf_counter()
-        metrics = cli.main(["--config", cfg_path, "--mode", "test"])
+        metrics, printed = run_logged(lambda: cli.main([
+            "--config", cfg_path, "--mode", "test"]))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_launches()
     finally:
         os.chdir(here)
+    check("export failed" not in printed, "tester: an export failed")
     root = os.path.join(cwd, "out", "test", "visualization")
     points = config.load_config(cfg_path, mode="test")["data"]["num_point"]
     dumps = read_test_dumps(root, points, 12)
@@ -1543,6 +1856,81 @@ class StepProbe:
         self.loop.train_step, self.loop.eval_step = self.saved
 
 
+def phase_loader(cfg3: str, tmp: str, workers: int = 8) -> dict:
+    """The loader's two routes on the train phase's 80000-point scenes:
+    one pass over the train items as one batch (all of them in flight on
+    `workers` workers) for each, the process route's first pass (the
+    pool's start included) and a second on the same pool; then for each
+    route (`device.worker_type`) a stage-3 train run of four epochs at the
+    train phase's batch 8, one train step an epoch, its loader wait a
+    step. `fork_server` is the fork server's pid after each process pass
+    and run: a change means that a pool started a new server."""
+    from multiprocessing import forkserver
+
+    from rfdnet_tpu_torch import cli, config
+    from rfdnet_tpu_torch.data import scannet
+
+    servers = []
+
+    def server():
+        servers.append(forkserver._forkserver._forkserver_pid)
+
+    cfg = config.load_config(cfg3, mode="train")
+    ds = cli._build_loaders(cfg, ["train"])["train"].dataset
+    n = len(ds)
+    passes, batches = {}, {}
+    for route in ("thread", "process"):
+        loader = scannet.DataLoader(ds, n, num_workers=workers,
+                                    worker_type=route)
+        times = []
+        for _ in range(2 if route == "process" else 1):
+            t0 = time.perf_counter()
+            got = list(loader)
+            times.append(time.perf_counter() - t0)
+            if route == "process":
+                server()
+        batches[route] = got
+        loader.close()
+        passes[route] = dict(items=n, items_per_s=[n / s for s in times],
+                             pass_s=times)
+    same = all(sorted(a) == sorted(b) and all(
+        a[k] == b[k] if isinstance(a[k], list) else
+        bool((a[k] == b[k]).all()) for k in a)
+        for a, b in zip(batches["thread"], batches["process"]))
+    runs, launches = {}, {}
+    for route in ("thread", "process"):
+        path = config_copy(cfg3, os.path.join(tmp, f"loader_{route}.yaml"), [
+            ("epochs: 3", "epochs: 4", 1),
+            (f"num_workers: {workers}\n",
+             f"num_workers: {workers}\n  worker_type: {route}\n", 1)])
+        trainer, steps, wall = train_cli(path)
+        if route == "process":
+            server()
+        waits = [s["loader_ms"] for s in trainer.step_times
+                 if s["phase"] == "train"]
+        launches[route] = [s["launches"] for s in steps
+                           if s["phase"] == "train"][0]
+        runs[route] = dict(steps=len(waits), loader_ms=waits,
+                           loader_ms_spread=spread(waits), cli_s=wall,
+                           val_loader_ms=[s["loader_ms"] for s in
+                                          trainer.step_times
+                                          if s["phase"] == "val"],
+                           device_ms=spread([s["device_ms"] for s in
+                                             trainer.step_times
+                                             if s["phase"] == "train"]))
+    emit(phase="loader", workers=workers, cores=os.cpu_count(),
+         passes=passes, same_batches=same, train_runs=runs,
+         fork_server=servers)
+    check(same, "loader: the process route's items differ from the "
+          "threads'")
+    check(all(r["steps"] >= 4 for r in runs.values()),
+          f"loader: train runs of {[r['steps'] for r in runs.values()]} "
+          "steps")
+    check(all(v == {"fps": 5, "cbn_decode": 0} for v in launches.values()),
+          f"loader: launches of a batch-8 train step {launches}")
+    return dict(passes=passes, train_runs=runs, launches=launches)
+
+
 def train_cli(cfg_path: str):
     """`cli.main --mode train` on `cfg_path` with its steps probed; returns
     (trainer, the probe's steps, host seconds)."""
@@ -1703,6 +2091,7 @@ def phase_train(dev):
                                                         "model_best"), 1)])
             stage2, stage2_steps, _ = train_cli(cfg2)
             cbn = val_decode_row(trainer, cfg3)
+            loader = phase_loader(cfg3, tmp)
         finally:
             os.chdir(cwd)
     reference = train_reference(dev)
@@ -1744,7 +2133,8 @@ def phase_train(dev):
           and stage2.frozen == ("backbone", "voting", "detection")
           and len(stage1_steps) == 2 and len(stage2_steps) == 2,
           "train: stages 1 and 2")
-    return train_steps[0]["launches"], val_steps[0]["launches"], cbn
+    return (train_steps[0]["launches"], val_steps[0]["launches"], cbn,
+            loader["launches"])
 
 
 def val_decode_row(trainer, cfg_path: str) -> dict:
@@ -1786,7 +2176,10 @@ def kernel_summary(fps_rows, fps_batch, cbn_rows, launches, test_cbn,
     (to the grids): FPS summed over its five calls there, the CBN decoder
     in the test config's f32 mode; `launches_by_path` has every driven
     path's count (the test path's a scene, `train` a full-width train
-    step, `train_val` its val step), `detection_ms` the FPS calls of the
+    step, `train_val` its val step, `train_<route>_workers` a batch-2
+    train step of the loader phase, `mesh_options` a scene with refine,
+    simplify and normals, `modules_msg` one `SetAbstractionMSG` call,
+    `mlp_bf16` a scene of the bf16 chains), `detection_ms` the FPS calls of the
     detection path (SA1-4 and vote_fps), the FPS entry's `train_batch`
     its five calls of a train step at batch 8, and the CBN entry's
     `test_shapes` the kernel at the test path's two other decodes and at
@@ -1876,12 +2269,22 @@ def main() -> int:
     launches["mise"], mise_cbn = phase_mise(model, data)
     torch.cuda.empty_cache()
     done("mise")
+    launches["mesh_options"] = phase_mesh_options(model, data)
+    done("mesh_options")
+    modules = phase_modules(model, data)
+    launches["modules_msg"], launches["mlp_bf16"] = (modules["msg"],
+                                                      modules["mlp_bf16"])
+    torch.cuda.empty_cache()
+    done("modules")
     launches["demo"] = phase_demo()
     launches["detection"] = phase_detection(dev)
     done("demo_detection")
     launches["test"], test_cbn = phase_tester(dev)
     done("tester")
-    launches["train"], launches["train_val"], train_cbn = phase_train(dev)
+    (launches["train"], launches["train_val"], train_cbn,
+     loader_launches) = phase_train(dev)
+    for route, counts in loader_launches.items():
+        launches[f"train_{route}_workers"] = counts
     test_cbn["train_val_t2048"] = train_cbn
     done("train")
     emit(phase="timing", seconds=seconds, total_s=sum(seconds.values()))

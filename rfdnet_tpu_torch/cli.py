@@ -1,5 +1,5 @@
 """CLI entry point: `python -m rfdnet_tpu_torch --config <yaml> --mode
-{train,test,demo} [--demo_path <scan>] [--device cpu]`.
+{train,test,demo} [--demo_path <scan>] [--device cpu] [--profile DIR]`.
 
 Counterpart of `rfdnet_tpu/cli.py`: one argparse surface, config load,
 seeding, then mode dispatch. It runs on the current CUDA card unless
@@ -9,12 +9,15 @@ schedules, freezing, a val pass each epoch) in a new run directory
 `<log.path>/<ISO time>/`, which receives `model_best` and `model_last`.
 `--mode test` evaluates the val split (`Tester`: mAP/AR per IoU threshold
 and per-class voxel IoU, printed as a table; the per-scene dumps under
-`out/test/visualization` with `generation.dump_results`).
+`out/test/visualization` with `generation.dump_results`). `--profile DIR`
+traces the whole mode with `torch.profiler` into `DIR/trace.json`
+(`utils/profiling.trace`).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 from . import resolve_device
@@ -68,6 +71,11 @@ def _build_loaders(cfg: dict, modes):
             shuffle=mode == "train",
             num_workers=cfg["device"].get("num_workers", 8) or 1,
             seed=cfg.get("seed", 10),
+            # `device.worker_type`, threads by default where the JAX
+            # package's CLI takes "auto" (processes): on the card's 8-core
+            # host processes assembled no more items a second and waited
+            # longer a train step (PERF.md, "Loader")
+            worker_type=cfg["device"].get("worker_type", "thread"),
         )
     return loaders
 
@@ -149,6 +157,9 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the current CUDA card; "
                              "without one, only an explicit 'cpu' runs)")
+    parser.add_argument("--profile", type=str, default=None,
+                        help="write a torch.profiler Chrome trace of the run "
+                             "to DIR/trace.json")
     return parser.parse_args(argv)
 
 
@@ -157,13 +168,19 @@ def main(argv=None):
     cfg = load_config(args.config, mode=args.mode)
     initiate_environment(cfg.get("seed", 10))
     print(f"mode: {args.mode}")
-    if args.mode == "train":
-        return run_train(cfg, device=args.device)
-    if args.mode == "test":
-        return run_test(cfg, device=args.device)[0]
-    from .demo import run as run_demo  # demo imports this module
+    ctx = contextlib.nullcontext()
+    if args.profile:
+        from .utils.profiling import trace
 
-    return run_demo(cfg, args.demo_path, device=args.device)
+        ctx = trace(args.profile)
+    with ctx:
+        if args.mode == "train":
+            return run_train(cfg, device=args.device)
+        if args.mode == "test":
+            return run_test(cfg, device=args.device)[0]
+        from .demo import run as run_demo  # demo imports this module
+
+        return run_demo(cfg, args.demo_path, device=args.device)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ import copy
 import re
 
 import numpy as np
+import torch
 
 from . import resolve_device
 
@@ -361,6 +362,7 @@ def build_model(cfg: dict = TEST_CONFIG, generate_limit: int = 64,
         use_cls_for_completion=d["use_cls_for_completion"],
         generate_limit=generate_limit,
         decoder_bf16=bool(d.get("decoder_bf16")),
+        mlp_dtype=torch.bfloat16 if d.get("mlp_bf16") else None,
         threshold=d["threshold"],
         completion_limit=d.get("completion_limit_in_train", 10),
     )

@@ -1,6 +1,7 @@
 // Host meshing of rfdnet_tpu_torch: the port's own copy of the marching
-// cubes, the MISE octree, the sparse-replay marching cubes and the surface
-// voxelizer of rfdnet_tpu/meshing/src/meshing.cpp (same case table, scan
+// cubes, the marching tetrahedra, the MISE octree, the sparse-replay
+// marching cubes and the surface voxelizer of
+// rfdnet_tpu/meshing/src/meshing.cpp (same case table, scan
 // order and vertex numbering, so both libraries give identical arrays on
 // identical inputs when built with the same flags). Plain C interface,
 // loaded with ctypes (rfdnet_tpu_torch/meshing/native.py). Vertices come
@@ -15,6 +16,7 @@
 #include <deque>
 #include <limits>
 #include <thread>
+#include <unordered_map>
 #include <vector>
 
 namespace {
@@ -618,6 +620,85 @@ void mise_one(const float *lvl0, int res0, int steps, const int32_t *idx,
       });
 }
 
+// ---------------------------------------------------------------- MT core
+struct MeshAcc {
+  std::vector<double> verts;
+  std::vector<int> tris;
+  std::unordered_map<uint64_t, int> edge_cache;
+
+  int edge_vertex(uint64_t key_a, uint64_t key_b, const V3 &pa, const V3 &pb,
+                  double va, double vb, double iso) {
+    uint64_t key = key_a < key_b ? (key_a << 32) | key_b : (key_b << 32) | key_a;
+    auto it = edge_cache.find(key);
+    if (it != edge_cache.end()) return it->second;
+    double t = (iso - va) / (vb - va);
+    if (!(t >= 0.0)) t = 0.0;
+    if (!(t <= 1.0)) t = 1.0;
+    int idx = (int)(verts.size() / 3);
+    verts.push_back(pa.x + t * (pb.x - pa.x));
+    verts.push_back(pa.y + t * (pb.y - pa.y));
+    verts.push_back(pa.z + t * (pb.z - pa.z));
+    edge_cache.emplace(key, idx);
+    return idx;
+  }
+};
+
+inline uint64_t node_key(int x, int y, int z, int ny, int nz) {
+  return ((uint64_t)x * ny + y) * nz + z;
+}
+
+void do_tetra(MeshAcc &acc, const uint64_t keys[4], const V3 pos[4],
+              const double val[4], double iso) {
+  int mask = 0;
+  for (int i = 0; i < 4; ++i)
+    if (val[i] > iso) mask |= 1 << i;
+  if (mask == 0 || mask == 15) return;
+
+  auto ev = [&](int a, int b) {
+    return acc.edge_vertex(keys[a], keys[b], pos[a], pos[b], val[a], val[b], iso);
+  };
+  auto tri = [&](int a, int b, int c) {
+    acc.tris.push_back(a);
+    acc.tris.push_back(b);
+    acc.tris.push_back(c);
+  };
+
+  switch (mask) {
+    case 1: tri(ev(0,1), ev(0,2), ev(0,3)); break;
+    case 14: tri(ev(0,1), ev(0,3), ev(0,2)); break;
+    case 2: tri(ev(1,0), ev(1,3), ev(1,2)); break;
+    case 13: tri(ev(1,0), ev(1,2), ev(1,3)); break;
+    case 4: tri(ev(2,0), ev(2,1), ev(2,3)); break;
+    case 11: tri(ev(2,0), ev(2,3), ev(2,1)); break;
+    case 8: tri(ev(3,0), ev(3,2), ev(3,1)); break;
+    case 7: tri(ev(3,0), ev(3,1), ev(3,2)); break;
+    case 3:  // 0,1 inside
+      tri(ev(0,2), ev(1,3), ev(0,3));
+      tri(ev(0,2), ev(1,2), ev(1,3));
+      break;
+    case 12:
+      tri(ev(0,2), ev(0,3), ev(1,3));
+      tri(ev(0,2), ev(1,3), ev(1,2));
+      break;
+    case 5:  // 0,2 inside
+      tri(ev(0,1), ev(0,3), ev(2,3));
+      tri(ev(0,1), ev(2,3), ev(2,1));
+      break;
+    case 10:
+      tri(ev(0,1), ev(2,3), ev(0,3));
+      tri(ev(0,1), ev(2,1), ev(2,3));
+      break;
+    case 9:  // 0,3 inside
+      tri(ev(0,1), ev(1,3), ev(2,3));
+      tri(ev(0,1), ev(2,3), ev(0,2));
+      break;
+    case 6:
+      tri(ev(0,1), ev(2,3), ev(1,3));
+      tri(ev(0,1), ev(0,2), ev(2,3));
+      break;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -655,6 +736,59 @@ int mc_extract(const float *grid, int nx, int ny, int nz, float iso,
         }
         fastmc::tess_cell(acc, x, y, z, ny, nz, cv, cmask, iso);
       });
+  *out_nv = (int)(acc.verts.size() / 3);
+  *out_nt = (int)(acc.tris.size() / 3);
+  double *v = new double[acc.verts.size()];
+  int *t = new int[acc.tris.size()];
+  std::memcpy(v, acc.verts.data(), acc.verts.size() * sizeof(double));
+  std::memcpy(t, acc.tris.data(), acc.tris.size() * sizeof(int));
+  *out_verts = v;
+  *out_tris = t;
+  return 0;
+}
+
+// Marching tetrahedra over a dense (nx, ny, nz) float32 grid (C order,
+// z fastest). Vertices come back in index space [0, n-1]. Two-call-free
+// interface: the library owns the buffers until mesh_free.
+int mt_extract(const float *grid, int nx, int ny, int nz, float iso,
+               double **out_verts, int **out_tris, int *out_nv, int *out_nt) {
+  MeshAcc acc;
+  auto val_at = [&](int x, int y, int z) {
+    return (double)grid[((size_t)x * ny + y) * nz + z];
+  };
+  // corner offsets in c = dx*4 + dy*2 + dz encoding
+  static const int CO[8][3] = {{0,0,0},{0,0,1},{0,1,0},{0,1,1},
+                               {1,0,0},{1,0,1},{1,1,0},{1,1,1}};
+  // 6-tetra split of the cube around main diagonal 0-7
+  static const int TET[6][4] = {
+      {0,7,3,1},{0,7,1,5},{0,7,5,4},{0,7,4,6},{0,7,6,2},{0,7,2,3}};
+  for (int x = 0; x < nx - 1; ++x)
+    for (int y = 0; y < ny - 1; ++y)
+      for (int z = 0; z < nz - 1; ++z) {
+        double cv[8];
+        uint64_t ck[8];
+        V3 cp[8];
+        bool any_in = false, any_out = false;
+        for (int c = 0; c < 8; ++c) {
+          int cx = x + CO[c][0], cy = y + CO[c][1], cz = z + CO[c][2];
+          cv[c] = val_at(cx, cy, cz);
+          ck[c] = node_key(cx, cy, cz, ny, nz);
+          cp[c] = V3{(double)cx, (double)cy, (double)cz};
+          (cv[c] > iso ? any_in : any_out) = true;
+        }
+        if (!any_in || !any_out) continue;
+        for (int t = 0; t < 6; ++t) {
+          uint64_t keys[4];
+          V3 pos[4];
+          double val[4];
+          for (int i = 0; i < 4; ++i) {
+            keys[i] = ck[TET[t][i]];
+            pos[i] = cp[TET[t][i]];
+            val[i] = cv[TET[t][i]];
+          }
+          do_tetra(acc, keys, pos, val, iso);
+        }
+      }
   *out_nv = (int)(acc.verts.size() / 3);
   *out_nt = (int)(acc.tris.size() / 3);
   double *v = new double[acc.verts.size()];

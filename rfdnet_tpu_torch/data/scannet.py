@@ -12,19 +12,23 @@ The port's own copy of `rfdnet_tpu/data/scannet.py`:
   [seed, epoch, index])))`, the stream of the JAX package, so both
   packages draw the same points.
 
-`DataLoader` assembles items in a pool of threads (the JAX package's
-process workers are not ported) and collates them in a background thread.
+`DataLoader` assembles items in a pool of worker processes or threads
+(`worker_type`) and collates them in a background thread. Both routes give
+the same batches: an item depends only on (seed, epoch, index).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import multiprocessing
 import os
 import pickle
 import queue
 import threading
+import weakref
 from collections import OrderedDict
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -70,9 +74,23 @@ class ScanNetDataset:
         self.epoch = 0
         self.cache_scans = int(cache_scans)
         self.cache_shapenet = int(cache_shapenet)
+        self._init_caches()
+
+    def _init_caches(self):
         self._scan_cache = OrderedDict()
         self._shp_cache = OrderedDict()
         self._cache_lock = threading.Lock()
+
+    def __getstate__(self):
+        # what a process worker receives: the caches start empty there
+        st = dict(self.__dict__)
+        for k in ("_scan_cache", "_shp_cache", "_cache_lock"):
+            st[k] = None
+        return st
+
+    def __setstate__(self, st):
+        self.__dict__.update(st)
+        self._init_caches()
 
     def _lru_get(self, cache, key, cap, load):
         if cap <= 0:
@@ -311,15 +329,52 @@ def collate(items: list[dict]) -> dict:
     return out
 
 
+_PROC_DATASET = None
+
+
+def _proc_worker_init(ds_bytes: bytes) -> None:
+    """Process-pool initializer: unpickle the dataset once a worker (a
+    bound method submitted per item would pickle the whole dataset each
+    time)."""
+    global _PROC_DATASET
+    _PROC_DATASET = pickle.loads(ds_bytes)
+
+
+def _proc_getitem(i: int, epoch):
+    """Item `i` of the worker's dataset at `epoch` (the parent's epoch when
+    the item was asked for)."""
+    if epoch is not None:
+        _PROC_DATASET.set_epoch(epoch)
+    return _PROC_DATASET[i]
+
+
 class DataLoader:
-    """Prefetching batch loader: a pool of `num_workers` threads assembles
+    """Prefetching batch loader: a pool of `num_workers` workers assembles
     items, a background thread collates them into batches (a queue of
     `prefetch` batches), so host assembly overlaps the device's work. An
-    item's failure is raised by the iterator."""
+    item's failure is raised by the iterator.
+
+    worker_type: "process" (worker processes, each holding an unpickled
+    copy of the dataset and receiving item indices), "thread", or "auto"
+    (processes when more than one worker and more than one core, else
+    threads), as the JAX package's loader. The workers come from the
+    `forkserver` start method: the parent has CUDA's and the producer's
+    threads, which `fork` would copy in an undefined state, and a `spawn`ed
+    worker imports torch (through this package) anew, seconds each. The
+    fork server is a fresh single-threaded process, started once for the
+    parent's life, that imports this module (and torch) once; each pool's
+    workers fork from it. The pool starts at the loader's first pass and
+    serves the next ones, the dataset as it was pickled then, at the epoch
+    of each request; `close()` stops it, and so does the loader's
+    collection."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 8,
-                 seed: int = 0, prefetch: int = 2):
+                 seed: int = 0, prefetch: int = 2,
+                 worker_type: str = "auto"):
+        if worker_type not in ("auto", "process", "thread"):
+            raise ValueError(f"worker_type {worker_type!r}: 'auto', "
+                             "'process' or 'thread'")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -327,7 +382,30 @@ class DataLoader:
         self.num_workers = max(1, min(num_workers, os.cpu_count() or 1))
         self.seed = seed
         self.prefetch = prefetch
+        if worker_type == "auto":
+            worker_type = ("process" if self.num_workers > 1
+                           and (os.cpu_count() or 1) > 1 else "thread")
+        self.worker_type = worker_type
         self._epoch = 0
+        self._pool = None
+
+    def _process_pool(self) -> ProcessPoolExecutor:
+        if self._pool is None:
+            ctx = multiprocessing.get_context("forkserver")
+            # read when the server starts (once a process)
+            ctx.set_forkserver_preload([__name__])
+            self._pool = ProcessPoolExecutor(
+                self.num_workers, mp_context=ctx,
+                initializer=_proc_worker_init,
+                initargs=(pickle.dumps(self.dataset),))
+            weakref.finalize(self, self._pool.shutdown, cancel_futures=True)
+        return self._pool
+
+    def close(self) -> None:
+        """Stop the worker processes (a later pass starts new ones)."""
+        if self._pool is not None:
+            self._pool.shutdown(cancel_futures=True)
+            self._pool = None
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -350,20 +428,26 @@ class DataLoader:
                    for i in range(len(self))]
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
+        if self.worker_type == "process" and self.num_workers > 1:
+            pool = self._process_pool()
+            epoch = getattr(self.dataset, "epoch", None)
+            submit = lambda i: pool.submit(_proc_getitem, int(i), epoch)
+            owned = contextlib.nullcontext()
+        else:
+            pool = owned = ThreadPoolExecutor(self.num_workers)
+            submit = lambda i: pool.submit(self.dataset.__getitem__, i)
 
         def produce():
             try:
-                with ThreadPoolExecutor(self.num_workers) as pool:
+                with owned:
                     # item futures run ahead across batch boundaries
-                    pending = [pool.submit(self.dataset.__getitem__, i)
-                               for b in batches[:2] for i in b]
+                    pending = [submit(i) for b in batches[:2] for i in b]
                     for bi, b in enumerate(batches):
                         if stop.is_set():
                             break
                         items = [pending.pop(0).result() for _ in b]
                         if bi + 2 < len(batches):
-                            pending.extend(pool.submit(self.dataset.__getitem__, i)
-                                           for i in batches[bi + 2])
+                            pending.extend(submit(i) for i in batches[bi + 2])
                         q.put(collate(items))
             except Exception as e:  # handed to the consumer
                 q.put(e)

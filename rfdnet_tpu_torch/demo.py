@@ -9,8 +9,11 @@ on the card) -> marching cubes on the host, and dump
 `generation.use_sampling` decodes with one prior draw of z a proposal
 (`ISCNet.sample_z`) in place of the prior mean. `generate_grids` stops at
 the logit grids on the device (what a tester reads before extraction);
-`post_processing` refits the boxes to the scan (`eval.refit`). Not ported
-yet: the `scene.html` / `pred.png` renderings.
+`post_processing` refits the boxes to the scan (`eval.refit`).
+`save_visualization` also writes `scene.html` (the interactive WebGL view,
+`utils/scene_html.py`), and `visualize` writes `pred.png` (a numpy
+render of the same view as the JAX package's matplotlib one,
+`utils/render.py`).
 """
 
 from __future__ import annotations
@@ -24,11 +27,14 @@ import torch
 
 from . import resolve_device
 from .config import build_model, eval_config
+from .eval.box_util import flip_axis_to_depth
 from .eval.refit import _box_params_from_corners, fit_meshes_to_scan
 from .eval.tester import place_mesh_in_box
 from .meshing.generator import Generator3D
 from .meshing.mesh import TriMesh, write_ply
 from .models.iscnet import _mark
+from .utils.render import TAB20, write_scene_png
+from .utils.scene_viz import SceneRender, corners_to_center_vectors
 
 
 def load_demo_data(path: str, num_points: int = 80_000,
@@ -92,11 +98,12 @@ def make_generator(cfg: dict, model, mise_impl: str = "device") -> Generator3D:
         with_normals=gen_cfg.get("with_normals", False),
         mise_impl=mise_impl,
         bind_fn=functools.partial(model.occupancy_decoder, sample=sample),
+        grad_bind_fn=functools.partial(model.gradient_decoder, sample=sample),
     )
 
 
-# inputs of the decoder that nothing on the host reads (refinement and
-# normals are off): they stay on the device
+# inputs of the decoder: they stay on the device (refine and normals decode
+# from them there)
 _DEVICE_ONLY = ("features", "cls_codes")
 
 
@@ -144,7 +151,9 @@ def generate(cfg: dict, model, data: dict, post_processing: bool = False,
     parsed, gen = _to_numpy(out["parsed"]), _to_numpy(gen)
     host = download.wait()
     t1 = time.perf_counter()
-    meshes = generator.meshes_from(host, valid=gen["valid"].reshape(-1))
+    meshes = generator.meshes_from(host, valid=gen["valid"].reshape(-1),
+                                   features=gen["features"],
+                                   cls_codes=gen["cls_codes"])
     if host_ms is not None:
         host_ms["d2h"] = (t1 - t0) * 1e3
         host_ms["mesh"] = (time.perf_counter() - t1) * 1e3
@@ -156,41 +165,85 @@ def generate(cfg: dict, model, data: dict, post_processing: bool = False,
     return parsed, gen, meshes
 
 
+def _valid_slots(gen: dict):
+    """(slot, proposal id) of each valid slot of the scene."""
+    return [(g, int(gen["proposal_ids"][0, g, 0]))
+            for g in range(gen["proposal_ids"].shape[1])
+            if gen["valid"][0, g]]
+
+
 def save_visualization(data: dict, parsed: dict, gen: dict, meshes,
                        out_dir: str) -> str:
     """The scene's points as `000000_pc.ply`, one `proposal_<j>_mesh.ply`
     per valid slot with a non-empty mesh (placed in its box, scan frame),
-    and `000000_pred_confident_nms_bbox.npz`: `obbs` (K, 7) [center, size,
+    `000000_pred_confident_nms_bbox.npz` (`obbs` (K, 7) [center, size,
     heading] depth-frame boxes and `proposal_map` (K, 1) proposal ids, one
-    row per valid slot."""
+    row per valid slot), and `scene.html`: the scan, the boxes and the
+    placed meshes, one color per instance, depth frame."""
     os.makedirs(out_dir, exist_ok=True)
     pc = data["point_clouds"]
     if isinstance(pc, torch.Tensor):
         pc = pc.cpu().numpy()
-    write_ply(os.path.join(out_dir, "000000_pc.ply"),
-              np.asarray(pc)[0, :, :3], np.zeros((0, 3), np.int32))
+    pc = np.asarray(pc)[0, :, :3]
+    write_ply(os.path.join(out_dir, "000000_pc.ply"), pc,
+              np.zeros((0, 3), np.int32))
     corners = parsed["pred_corners_3d_upright_camera"]
     boxes, proposal_map = [], []
-    for g in range(gen["proposal_ids"].shape[1]):
-        if not gen["valid"][0, g]:
-            continue
-        j = int(gen["proposal_ids"][0, g, 0])
+    centers, vectors, placed_meshes = [], [], []
+    for g, j in _valid_slots(gen):
+        c, vec = corners_to_center_vectors(flip_axis_to_depth(corners[0, j]))
+        centers.append(c)
+        vectors.append(vec)
         if len(meshes[g].vertices):
-            place_mesh_in_box(meshes[g], corners[0, j]).export(
-                os.path.join(out_dir, f"proposal_{j}_mesh.ply"))
+            placed = place_mesh_in_box(meshes[g], corners[0, j])
+            placed.export(os.path.join(out_dir, f"proposal_{j}_mesh.ply"))
+            placed_meshes.append((flip_axis_to_depth(
+                np.asarray(placed.vertices)), np.asarray(placed.faces)))
+        else:
+            placed_meshes.append((np.zeros((0, 3)),
+                                  np.zeros((0, 3), np.int64)))
         boxes.append(_box_params_from_corners(corners[0, j]))
         proposal_map.append([j])
     np.savez(
         os.path.join(out_dir, "000000_pred_confident_nms_bbox.npz"),
         obbs=np.array(boxes), proposal_map=np.array(proposal_map),
     )
+    SceneRender(
+        pc, meshes=placed_meshes, centers=centers, vectors=vectors,
+        class_ids=[0] * len(centers),
+    ).export_html(
+        os.path.join(out_dir, "scene.html"),
+        title=os.path.basename(out_dir), color_mode="instance",
+    )
     return out_dir
+
+
+def visualize(data: dict, parsed: dict, gen: dict, meshes,
+              out_path: str) -> str:
+    """`pred.png`: the scan, each valid slot's box edges and placed mesh in
+    the slot's tab20 color, from the JAX demo's view (`utils/render.py`)."""
+    pc = data["point_clouds"]
+    if isinstance(pc, torch.Tensor):
+        pc = pc.cpu().numpy()
+    corners = parsed["pred_corners_3d_upright_camera"]
+    boxes, placed, colors = [], [], []
+    for g, j in _valid_slots(gen):
+        boxes.append(flip_axis_to_depth(corners[0, j]))
+        colors.append(TAB20[g % 20])
+        if len(meshes[g].vertices):
+            m = place_mesh_in_box(meshes[g], corners[0, j])
+            placed.append((m.vertices, m.faces))
+        else:
+            placed.append((np.zeros((0, 3)), np.zeros((0, 3), np.int64)))
+    return write_scene_png(out_path, np.asarray(pc)[0, :, :3], boxes,
+                           placed, colors)
 
 
 def run(cfg: dict, demo_path: str, device=None, log=print) -> str:
     """Load the scan, build the model with the configured weights
     (`cli.restore_weights`), generate, and dump under
-    `out/demo/visualization/<scene>`. Returns that directory."""
+    `out/demo/visualization/<scene>` (`save_visualization` and
+    `pred.png`). Returns that directory."""
     from .cli import restore_weights
 
     t0 = time.time()
@@ -203,5 +256,6 @@ def run(cfg: dict, demo_path: str, device=None, log=print) -> str:
     scene = os.path.splitext(os.path.basename(demo_path))[0]
     out_dir = os.path.join("out/demo", "visualization", scene)
     save_visualization(data, parsed, gen, meshes, out_dir)
+    visualize(data, parsed, gen, meshes, os.path.join(out_dir, "pred.png"))
     log(f"Time elapsed: {time.time() - t0:.2f}s -> {out_dir}")
     return out_dir

@@ -30,7 +30,8 @@ choice between its Pallas kernel and XLA, has no counterpart and is
 ignored. The grids cross to the host as dense float32: the f16 and sparse
 transfers of the JAX Tester exist for the TPU's host link and are not
 ported, nor is its f16 narrowing of the octree's decodes (the port keeps
-f32). Not ported: the `scene.html` dump.
+f32). With `refinement_step` or `with_normals` the scene's features and
+class codes stay alive with the pending scene, for the worker's decodes.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ import torch
 
 from ..config import CLASS2TYPE, eval_config
 from ..meshing.generator import copies_done, host_copy
+from ..utils.scene_viz import SceneRender, corners_to_center_vectors
 from .ap_helper import (
     APCalculator,
     assembly_gt_map_cls,
@@ -128,7 +130,6 @@ class Tester:
         # the worker's stream: its refit runs beside the next scene's work
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
-        self._said_no_html = False
         # per scene, the milliseconds of each stage (see `consume_step`)
         self.scene_ms: list[dict] = []
         self.refit_sizes: list[dict] = []
@@ -171,8 +172,15 @@ class Tester:
         for k in ("completion_loss", "shape_voxels_bits", "grids"):
             if k in out:
                 host[k] = host_copy(out[k])
+        # refine and normals decode again from the scene's features, on the
+        # device, in `consume_step`: they stay alive with the pending scene
+        decoder_inputs = None
+        if ("gen" in out and self.generator is not None
+                and self.generator.needs_decoder):
+            decoder_inputs = (out["gen"]["features"], out["gen"]["cls_codes"])
         return {"batch": batch, "host": host, "done": copies_done(dev),
-                "octree": octree, "events": events, "dispatch_ms": _ms(t0)}
+                "octree": octree, "events": events, "dispatch_ms": _ms(t0),
+                "decoder_inputs": decoder_inputs}
 
     def test_step(self, batch: dict) -> dict:
         return self.consume_step(self.dispatch_step(batch))
@@ -209,12 +217,14 @@ class Tester:
 
         meshes = None
         t0 = time.perf_counter()
+        features, cls_codes = pending.get("decoder_inputs") or (None, None)
         if gen and "grids" in host:
             meshes = self.generator.meshes_from_grids(
-                host["grids"].numpy(), valid=gen["valid"].reshape(-1))
+                host["grids"].numpy(), gen["valid"].reshape(-1), features,
+                cls_codes)
         elif gen and octree is not None:
             meshes = self.generator.meshes_from(
-                octree, valid=gen["valid"].reshape(-1))
+                octree, gen["valid"].reshape(-1), features, cls_codes)
         ms["mesh"] = _ms(t0)
         t0 = time.perf_counter()
         refit_sizes = {}
@@ -314,8 +324,11 @@ class Tester:
     def visualize_step(self, out: dict, batch: dict, scene_dir: str):
         """Per-scene dumps: the scan (`000000_pc.ply`), the confident NMS
         boxes (`000000_pred_confident_nms_bbox.ply`), each valid slot's
-        mesh placed in its box (`proposal_<j>_mesh.ply`), and the pred/gt
-        (class, box, score) lists (`pred_map_cls.txt`, `gt_map_cls.txt`)."""
+        mesh placed in its box (`proposal_<j>_mesh.ply`), the interactive
+        WebGL view of them (`scene.html`), and the pred/gt (class, box,
+        score) lists (`pred_map_cls.txt`, `gt_map_cls.txt`). A failed
+        `scene.html` is logged ("export failed") and does not stop the
+        run."""
         from ..meshing.mesh import write_ply
         from ..utils.visualization import write_oriented_bbox_ply
 
@@ -344,10 +357,37 @@ class Tester:
                         mesh, parsed["pred_corners_3d_upright_camera"][0, j]
                     ).export(os.path.join(scene_dir,
                                           f"proposal_{j}_mesh.ply"))
-        if not self._said_no_html:
-            self.log("[tester] scene.html is not ported (ROADMAP.md, "
-                     "'Left-overs'): not written")
-            self._said_no_html = True
+        # the interactive WebGL inspector: the scan, each confident NMS
+        # box and its placed mesh, colored by predicted class
+        try:
+            mesh_by_pid = {}
+            if gen and out["meshes"] is not None:
+                for g in range(gen["proposal_ids"].shape[1]):
+                    mesh = out["meshes"][g]
+                    if gen["valid"][0, g] and len(mesh.vertices):
+                        mesh_by_pid[int(gen["proposal_ids"][0, g, 0])] = mesh
+            corners = parsed["pred_corners_3d_upright_camera"][0]
+            centers, vectors, cls_ids, placed = [], [], [], []
+            for j in keep:
+                c, vec = corners_to_center_vectors(flip_axis_to_depth(
+                    corners[j]))
+                centers.append(c)
+                vectors.append(vec)
+                cls_ids.append(int(parsed["pred_sem_cls"][0, j]))
+                if j in mesh_by_pid:
+                    m = place_mesh_in_box(mesh_by_pid[j], corners[j])
+                    placed.append((flip_axis_to_depth(np.asarray(m.vertices)),
+                                   np.asarray(m.faces)))
+                else:
+                    placed.append((np.zeros((0, 3)),
+                                   np.zeros((0, 3), np.int64)))
+            SceneRender(pc, meshes=placed, centers=centers, vectors=vectors,
+                        class_ids=cls_ids).export_html(
+                os.path.join(scene_dir, "scene.html"),
+                title=os.path.basename(scene_dir),
+                class_names=[CLASS2TYPE[c] for c in sorted(CLASS2TYPE)])
+        except Exception as e:  # a dump never fails the evaluation
+            self.log(f"[tester] scene.html export failed: {e!r}")
 
         with open(os.path.join(scene_dir, "pred_map_cls.txt"), "w") as f:
             for item in out["batch_pred_map_cls"][0]:
@@ -365,6 +405,10 @@ class Tester:
         """`consume_step` and the scene's dumps, on the worker's stream."""
         with (torch.cuda.stream(self._stream) if self._stream is not None
               else contextlib.nullcontext()):
+            if self._stream is not None:
+                # made on the main stream, read by refine and normals here
+                for x in pending.get("decoder_inputs") or ():
+                    x.record_stream(self._stream)
             out = self.consume_step(pending)
             if dump_dir is not None:
                 t0 = time.perf_counter()

@@ -1,7 +1,8 @@
 """ctypes bindings of the host meshing library (`csrc/meshing.cpp`).
 
-Counterpart of `rfdnet_tpu/meshing/native.py`: marching cubes over dense
-grids, the MISE octree (`MiseNative`), marching cubes straight from the
+Counterpart of `rfdnet_tpu/meshing/native.py`: marching cubes and
+marching tetrahedra over dense grids, the QEM simplification (a library
+of its own, `csrc/simplify.cpp`), the MISE octree (`MiseNative`), marching cubes straight from the
 device octree's sparse outputs (`mise_marching_cubes(_batch)`), and the
 surface voxelizer and interior fill of the mesh mAP. The library is built
 with `g++` at first use by `ops/_native.py`; a missing compiler or a
@@ -37,6 +38,10 @@ def get_lib() -> ctypes.CDLL:
     lib.mc_extract_padded.argtypes = [
         _F32P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_float, *_MESH_OUT]
+    lib.mt_extract.restype = ctypes.c_int
+    lib.mt_extract.argtypes = [
+        _F32P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        *_MESH_OUT]
     lib.mesh_free.restype = None
     lib.mesh_free.argtypes = [_F64P, _I32P]
     lib.mc_extract_batch.restype = ctypes.c_void_p
@@ -79,6 +84,18 @@ def get_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def get_simplify_lib() -> ctypes.CDLL:
+    lib = _native.load("simplify")
+    lib.simplify_qem.restype = ctypes.c_int
+    lib.simplify_qem.argtypes = [
+        _F64P, ctypes.c_int, _I32P, ctypes.c_int, ctypes.c_int,
+        ctypes.c_double, *_MESH_OUT]
+    lib.prep_free.restype = None
+    lib.prep_free.argtypes = [_F64P, _I32P]
+    return lib
+
+
 def _grid(grid, ndim: int) -> np.ndarray:
     grid = np.ascontiguousarray(grid, dtype=np.float32)
     if grid.ndim != ndim or 0 in grid.shape:
@@ -92,10 +109,11 @@ def _extract(fn, grid: np.ndarray, *scalars):
     return _mesh_call(fn, grid.ctypes.data_as(_F32P), *grid.shape, *scalars)
 
 
-def _mesh_call(fn, *args):
+def _mesh_call(fn, *args, free=None):
     """fn(*args, &verts, &tris, &nv, &nt), its mesh copied out of native
-    memory."""
-    lib = get_lib()
+    memory, which `free` (the meshing library's `mesh_free` by default)
+    then releases."""
+    free = free or get_lib().mesh_free
     vp, tp = _F64P(), _I32P()
     nv, nt = ctypes.c_int32(), ctypes.c_int32()
     fn(*args,
@@ -104,7 +122,7 @@ def _mesh_call(fn, *args):
         verts = np.ctypeslib.as_array(vp, shape=(nv.value, 3)).copy()
         tris = np.ctypeslib.as_array(tp, shape=(nt.value, 3)).copy()
     finally:
-        lib.mesh_free(vp, tp)
+        free(vp, tp)
     return verts, tris
 
 
@@ -113,6 +131,34 @@ def marching_cubes(grid: np.ndarray, iso: float):
     whose per-face ambiguity resolution is the same for the two cubes that
     share a face (watertight)."""
     return _extract(get_lib().mc_extract, _grid(grid, 3), ctypes.c_float(iso))
+
+
+def marching_tetrahedra(grid: np.ndarray, iso: float):
+    """Iso-surface of a dense (nx, ny, nz) grid by marching tetrahedra (six
+    tetrahedra a cube around its main diagonal; about three times the
+    triangles of marching cubes for the same field)."""
+    return _extract(get_lib().mt_extract, _grid(grid, 3), ctypes.c_float(iso))
+
+
+def simplify_mesh(verts, tris, target_faces: int,
+                  aggressiveness: float = 7.0):
+    """Quadric-error-metric simplification of a mesh (V, 3) / (T, 3) toward
+    `target_faces` triangles; a higher `aggressiveness` lets each pass
+    collapse edges of larger error. Returns (verts (V', 3) float64, tris
+    (T', 3) int32), vertices renumbered in order of first use."""
+    lib = get_simplify_lib()
+    verts = np.ascontiguousarray(verts, dtype=np.float64)
+    tris = np.ascontiguousarray(tris, dtype=np.int32)
+    if verts.ndim != 2 or verts.shape[1] != 3 or tris.ndim != 2 or (
+            tris.shape[1] != 3):
+        raise ValueError(f"verts {verts.shape}, tris {tris.shape}: expected "
+                         "(V, 3) and (T, 3)")
+    if len(tris) and (tris.min() < 0 or tris.max() >= len(verts)):
+        raise ValueError("tris index outside verts")
+    return _mesh_call(
+        lib.simplify_qem, verts.ctypes.data_as(_F64P), len(verts),
+        tris.ctypes.data_as(_I32P), len(tris), int(target_faces),
+        ctypes.c_double(aggressiveness), free=lib.prep_free)
 
 
 def marching_cubes_padded(grid: np.ndarray, iso: float,

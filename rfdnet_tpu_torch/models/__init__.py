@@ -9,9 +9,16 @@ from .layers import (
     DecoderCBatchNorm,
     ResnetBlockFC,
     ResnetPointnet,
+    SelfAttention,
 )
 from .occnet import ONet, make_3d_grid
-from .pointnet2 import FeaturePropagation, GroupSTN3d, SetAbstraction, STNGroup
+from .pointnet2 import (
+    FeaturePropagation,
+    GroupSTN3d,
+    SetAbstraction,
+    SetAbstractionMSG,
+    STNGroup,
+)
 from .pointseg import PointNetEncoder, PointSeg
 from .proposal import ProposalModule, decode_scores
 from .skip_propagation import SkipPropagation
@@ -21,7 +28,7 @@ __all__ = [
     "BatchNorm", "CBatchNorm", "CResnetBlockConv1d", "DecoderCBatchNorm",
     "Dense", "FeaturePropagation", "GroupSTN3d", "ISCNet", "MLPHead", "ONet",
     "PointNetEncoder", "PointSeg", "Pointnet2Backbone", "ProposalModule",
-    "ResnetBlockFC", "ResnetPointnet", "STNGroup", "SetAbstraction",
-    "SharedMLP", "SkipPropagation", "VotingModule", "decode_scores",
+    "ResnetBlockFC", "ResnetPointnet", "STNGroup", "SelfAttention",
+    "SetAbstraction", "SetAbstractionMSG", "SharedMLP", "SkipPropagation", "VotingModule", "decode_scores",
     "make_3d_grid", "max_pool_points",
 ]

@@ -5,6 +5,13 @@ follow the flax tree (`dense0`, `bn0`, ...) so that `weights.from_flax`
 is a mechanical rename. A module's train mode is torch's (`model.train()`
 / `model.eval()`); the batch norms' momentum is an attribute that
 `set_bn_momentum` sets (the JAX package passes it to every call).
+
+The bf16 MLP chains (`data.mlp_bf16`, `set_compute_dtype`): a `Dense` with
+a `compute_dtype` multiplies in that type (operands rounded to it, the
+product accumulated in f32 by the matrix unit and rounded once), adds its
+f32 bias in f32 and returns that type; a batch norm normalises in f32 and
+returns its input's type. Parameters stay f32. A `Dense` without one
+takes its input in f32 (the f32 heads of a bf16 chain).
 """
 
 from __future__ import annotations
@@ -17,12 +24,34 @@ from torch import nn
 
 class Dense(nn.Linear):
     """Linear layer; `zero_init` marks the layers the JAX package
-    initialises with a zero kernel (read by `weights.init_seeded`)."""
+    initialises with a zero kernel (read by `weights.init_seeded`);
+    `compute_dtype`: see the module docstring."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, zero_init: bool = False):
         super().__init__(in_features, out_features, bias=bias)
         self.zero_init = zero_init
+        self.compute_dtype = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x.to(self.weight.dtype))
+        y = nn.functional.linear(x.to(dt), self.weight.to(dt))
+        if self.bias is not None:
+            y = y.to(self.bias.dtype) + self.bias
+        return y.to(dt)
+
+
+def set_compute_dtype(module: nn.Module, dtype) -> None:
+    """Give every `Dense` of `module`'s tree the `compute_dtype` `dtype`
+    (None: f32), except the f32 heads that their owners list in
+    `F32_HEADS`."""
+    for owner in module.modules():
+        heads = getattr(owner, "F32_HEADS", ())
+        for name, child in owner.named_children():
+            if isinstance(child, Dense) and name not in heads:
+                child.compute_dtype = dtype
 
 
 def batch_statistics(x: torch.Tensor, running_mean: torch.Tensor,
@@ -70,8 +99,8 @@ class BatchNorm(nn.Module):
                                          self.running_var, self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
-        y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.weight + self.bias
+        y = (x.float() - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight + self.bias).to(x.dtype)
 
 
 def set_bn_momentum(model: nn.Module, momentum: float) -> None:

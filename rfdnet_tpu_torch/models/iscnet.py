@@ -32,6 +32,7 @@ from ..ops import (
     nms_3d,
 )
 from .backbone import Pointnet2Backbone
+from .common import set_compute_dtype
 from .losses import detection_loss, onet_loss
 from .occnet import ONet, make_3d_grid
 from .proposal import ProposalModule
@@ -93,12 +94,15 @@ class ISCNet(nn.Module):
                  use_cls_for_completion: bool = False,
                  generate_limit: int = 64, decoder_bf16: bool = False,
                  threshold: float = 0.5, completion_limit: int = 10,
-                 frozen: tuple = ()):
+                 frozen: tuple = (), mlp_dtype=None):
         """`completion_limit`: proposals completed per scene in the
         training forward (`data.completion_limit_in_train`). `frozen`:
         submodules held in eval mode when the model trains (the reference
         freezes a module's parameters and switches it to eval; the update
-        mask is the trainer's)."""
+        mask is the trainer's). `mlp_dtype`: torch.bfloat16 runs the shared
+        MLPs of the backbone, the voting, the vote aggregation and the skip
+        propagation as bf16 chains (`data.mlp_bf16`, see
+        `common.set_compute_dtype`); None keeps f32."""
         super().__init__()
         self.num_class = num_class
         self.num_heading_bin = num_heading_bin
@@ -131,6 +135,12 @@ class ISCNet(nn.Module):
                 num_class=num_class, decoder_bf16=decoder_bf16,
                 threshold=threshold,
             )
+        if mlp_dtype is not None:
+            for m in (self.backbone, self.voting,
+                      self.detection.vote_aggregation,
+                      getattr(self, "skip_propagation", None)):
+                if m is not None:
+                    set_compute_dtype(m, mlp_dtype)
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -484,6 +494,27 @@ class ISCNet(nn.Module):
         def decode(points, rows=None):
             with torch.no_grad():
                 return bound(points, rows)
+
+        return decode
+
+    def gradient_decoder(self, features, cls_codes, z=None,
+                         sample: bool = False):
+        """`occupancy_decoder`'s counterpart that autograd can differentiate
+        with respect to the points (refine and normals): the same z, the
+        layer-by-layer chain `ONet.decode` in eval mode in place of the
+        fused kernel, which has no backward. Call it under grad mode."""
+        if self.training:
+            raise RuntimeError("gradient_decoder decodes in eval mode")
+        c = self.completion._cond(features, cls_codes).detach()
+        if z is None:
+            z = (self.sample_z(c.shape[0], c.device) if sample
+                 else torch.zeros((c.shape[0], self.completion.z_dim),
+                                  device=c.device))
+
+        def decode(points, rows=None):
+            if rows is None:
+                return self.completion.decode(points, z, c)
+            return self.completion.decode(points, z[rows], c[rows])
 
         return decode
 

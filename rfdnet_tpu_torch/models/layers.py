@@ -2,7 +2,7 @@
 
 Counterpart of `rfdnet_tpu/models/layers.py`: `ResnetBlockFC`,
 `CBatchNorm`, `_AffinelessBatchNorm`, `CResnetBlockConv1d`,
-`ResnetPointnet`, `DecoderCBatchNorm`, `EncoderLatent`. A CBatchNorm's conditional affine
+`ResnetPointnet`, `DecoderCBatchNorm`, `EncoderLatent`, `SelfAttention`. A CBatchNorm's conditional affine
 is two `Dense` layers, `gamma` and `beta` (the flax `gamma_kernel/
 gamma_bias` and `beta_kernel/beta_bias`).
 """
@@ -33,7 +33,8 @@ class ResnetBlockFC(nn.Module):
     def forward(self, x):
         xr = torch.relu(x)
         dx = self.fc_1(torch.relu(self.fc_0(xr)))
-        x_s = self.shortcut(xr) if self.shortcut is not None else xr
+        x_s = (self.shortcut(xr) if self.shortcut is not None
+               else xr.to(dx.dtype))
         return x_s + dx
 
 
@@ -100,6 +101,8 @@ class CResnetBlockConv1d(nn.Module):
 class ResnetPointnet(nn.Module):
     """PointNet encoder with 5 resnet blocks and max-pool-concat:
     p (B, T, dim) -> c (B, c_dim)."""
+
+    F32_HEADS = ("fc_c",)   # the codes stay f32 in a bf16 chain
 
     def __init__(self, dim: int, c_dim: int = 512, hidden_dim: int = 512):
         super().__init__()
@@ -186,3 +189,24 @@ class EncoderLatent(nn.Module):
         net = pool_cat(self.fc_2(torch.relu(net)))
         net = max_pool_points(self.fc_3(torch.relu(net)), dim=1)
         return self.fc_mean(net), self.fc_logstd(net)
+
+
+class SelfAttention(nn.Module):
+    """Dot-product self-attention over a point set, with a gamma-gated
+    residual (gamma starts at 0, so the block starts as the identity):
+    x (B, T, C) -> (B, T, C). The softmax subtracts each row's max before
+    the exp, as the JAX package's. No shipped config selects it."""
+
+    def __init__(self, channels: int, reduce: int = 8):
+        super().__init__()
+        self.query = Dense(channels, channels // reduce)
+        self.key = Dense(channels, channels // reduce)
+        self.value = Dense(channels, channels)
+        self.gamma = nn.Parameter(torch.zeros(()))
+
+    def forward(self, x):
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        attn = torch.einsum("btd,bsd->bts", q, k)
+        attn = torch.exp(attn - attn.amax(dim=-1, keepdim=True))
+        attn = attn / attn.sum(dim=-1, keepdim=True)
+        return self.gamma * torch.einsum("bts,bsc->btc", attn, v) + x

@@ -1,9 +1,12 @@
 """Losses of training: the detection loss with every term and constant,
-and the ONet loss.
+and the ONet loss; the BoxNet detection loss and the chamfer loss, which
+no shipped config selects.
 
 Counterpart of `rfdnet_tpu/models/losses.py` (`_cross_entropy`,
 `compute_vote_loss`, `compute_objectness_loss`,
-`compute_box_and_sem_cls_loss`, `detection_loss`, `onet_loss`): NEAR 0.3
+`compute_box_and_sem_cls_loss`, `detection_loss`,
+`compute_objectness_loss_boxnet`, `boxnet_detection_loss`, `onet_loss`,
+`chamfer_loss`): NEAR 0.3
 / FAR 0.6 objectness thresholds, objectness class weights [0.2, 0.8], box
 term weights 0.1 (heading class) and 0.1 (size class), total = (vote +
 0.5 objectness + box + 0.1 semantic class) x 10, ONet total =
@@ -172,6 +175,59 @@ def detection_loss(est, gt, mean_size_arr, num_heading_bin: int = 12,
     }
 
 
+def compute_objectness_loss_boxnet(est, gt):
+    """BoxNet's objectness: each proposal's label is its seed's GT vote
+    mask (gathered through `seed_inds`, then `aggregated_vote_inds`), every
+    proposal counts (no NEAR/FAR zone). Returns (loss, objectness_label,
+    objectness_mask, object_assignment)."""
+    _, ind1, _, _ = nn_distance(est["aggregated_vote_xyz"],
+                                gt["center_label"][:, :, 0:3])
+    seed_labels = _take(gt["vote_label_mask"], est["seed_inds"])
+    objectness_label = _take(seed_labels,
+                             est["aggregated_vote_inds"]).long()
+    objectness_mask = torch.ones_like(objectness_label, dtype=torch.float32)
+    loss = _cross_entropy(est["objectness_scores"], objectness_label,
+                          OBJECTNESS_CLS_WEIGHTS)
+    loss = torch.sum(loss * objectness_mask) / (
+        torch.sum(objectness_mask) + 1e-6)
+    return loss, objectness_label, objectness_mask, ind1
+
+
+def boxnet_detection_loss(est, gt, mean_size_arr, num_heading_bin: int = 12,
+                          num_size_cluster: int = 8) -> dict:
+    """`detection_loss` with BoxNet's objectness and no vote loss."""
+    objectness_loss, objectness_label, objectness_mask, object_assignment = (
+        compute_objectness_loss_boxnet(est, gt))
+    total_num_proposal = objectness_label.shape[0] * objectness_label.shape[1]
+    pos_ratio = torch.sum(objectness_label.float()) / total_num_proposal
+    neg_ratio = torch.sum(objectness_mask) / total_num_proposal - pos_ratio
+    (center_loss, heading_cls_loss, heading_reg_loss, size_cls_loss,
+     size_reg_loss, sem_cls_loss) = compute_box_and_sem_cls_loss(
+        est, gt, object_assignment, objectness_label, mean_size_arr,
+        num_heading_bin, num_size_cluster)
+    box_loss = (center_loss + 0.1 * heading_cls_loss + heading_reg_loss
+                + 0.1 * size_cls_loss + size_reg_loss)
+    loss = (0.5 * objectness_loss + box_loss + 0.1 * sem_cls_loss) * 10.0
+    obj_pred = est["objectness_scores"].argmax(dim=2)
+    obj_acc = torch.sum((obj_pred == objectness_label).float()
+                        * objectness_mask) / (torch.sum(objectness_mask)
+                                              + 1e-6)
+    return {
+        "total": loss,
+        "objectness_loss": objectness_loss,
+        "box_loss": box_loss,
+        "sem_cls_loss": sem_cls_loss,
+        "pos_ratio": pos_ratio,
+        "neg_ratio": neg_ratio,
+        "center_loss": center_loss,
+        "heading_cls_loss": heading_cls_loss,
+        "heading_reg_loss": heading_reg_loss,
+        "size_cls_loss": size_cls_loss,
+        "size_reg_loss": size_reg_loss,
+        "obj_acc": obj_acc,
+    }
+
+
 def onet_loss(completion_loss, mask_loss, weight: float = 1.0) -> dict:
     """weight x (completion + 100 x mask)."""
     return {
@@ -179,3 +235,10 @@ def onet_loss(completion_loss, mask_loss, weight: float = 1.0) -> dict:
         "completion_loss": completion_loss,
         "mask_loss": mask_loss,
     }
+
+
+def chamfer_loss(set1, set2, weight: float = 1.0):
+    """weight x (mean squared distance of each point of set1 (B, N, 3) to
+    its nearest in set2 (B, M, 3) + the same from set2 to set1)."""
+    d1, _, d2, _ = nn_distance(set1.float(), set2.float())
+    return weight * (d1.mean() + d2.mean())

@@ -2,7 +2,8 @@
 channels-last.
 
 Counterpart of `rfdnet_tpu/models/pointnet2.py`: `SetAbstraction`
-(max pooling), `FeaturePropagation`, `GroupSTN3d`, `STNGroup`. Torch
+(max pooling), `SetAbstractionMSG`, `FeaturePropagation`, `GroupSTN3d`,
+`STNGroup`. Torch
 layers need their input widths, which flax infers; each constructor takes
 them. FPS samples a detached copy of the points: no gradient flows
 through the choice of samples, as the JAX package's `stop_gradient`.
@@ -50,7 +51,43 @@ class SetAbstraction(nn.Module):
             xyz, new_xyz, idx, features, radius=self.radius,
             use_xyz=self.use_xyz, normalize_xyz=self.normalize_xyz,
         )
-        return new_xyz, max_pool_points(self.mlp(grouped), dim=2), inds
+        # the pooled features leave in f32 (also from a bf16 chain)
+        return (new_xyz, max_pool_points(self.mlp(grouped), dim=2).float(),
+                inds)
+
+
+class SetAbstractionMSG(nn.Module):
+    """Multi-scale grouping (PointnetSAModuleMSG): one FPS sampling, then
+    for each (radius, nsample, mlp) branch a ball query, a shared MLP
+    (`mlp<i>`) and a max pool; the branches' features concatenated. No
+    shipped config selects it."""
+
+    def __init__(self, npoint: int, radii: Sequence[float],
+                 nsamples: Sequence[int], in_features: int,
+                 mlps: Sequence[Sequence[int]], use_xyz: bool = True):
+        super().__init__()
+        if not len(radii) == len(nsamples) == len(mlps):
+            raise ValueError("radii, nsamples and mlps need one entry a "
+                             "branch")
+        self.npoint, self.use_xyz = npoint, use_xyz
+        self.radii, self.nsamples = list(radii), list(nsamples)
+        for i, mlp in enumerate(mlps):
+            self.add_module(f"mlp{i}",
+                            SharedMLP(in_features + 3 * use_xyz, mlp))
+
+    def forward(self, xyz, features):
+        """xyz (B, N, 3), features (B, N, C) | None -> (new_xyz (B, np, 3),
+        new_features (B, np, sum of the mlps' last widths), inds (B, np))."""
+        inds = furthest_point_sample(xyz.detach().contiguous(), self.npoint)
+        new_xyz = gather_points(xyz, inds)
+        outs = []
+        for i, (r, ns) in enumerate(zip(self.radii, self.nsamples)):
+            idx = ball_query(xyz, new_xyz, r, ns)
+            grouped, _ = query_and_group(xyz, new_xyz, idx, features,
+                                         radius=r, use_xyz=self.use_xyz)
+            outs.append(max_pool_points(getattr(self, f"mlp{i}")(grouped),
+                                        dim=2))
+        return new_xyz, torch.cat(outs, dim=-1), inds
 
 
 class FeaturePropagation(nn.Module):
@@ -65,13 +102,15 @@ class FeaturePropagation(nn.Module):
         new = interpolate_features(unknown_xyz, known_xyz, known_feats)
         if unknown_feats is not None:
             new = torch.cat([new, unknown_feats], dim=-1)
-        return self.mlp(new)
+        return self.mlp(new).float()
 
 
 class GroupSTN3d(nn.Module):
     """12-parameter (3x4 affine) transformer over grouped xyz,
     (B, P, S, 3) -> (B, P, S, 3). The FC stack is zero-initialised, so the
-    transform starts as the identity."""
+    transform starts as the identity; it stays f32 in a bf16 chain."""
+
+    F32_HEADS = ("fc1", "fc2", "fc3")
 
     def __init__(self):
         super().__init__()

@@ -17,6 +17,8 @@ class _STN(nn.Module):
     """STN3d / STNkd trunk: per-point MLP 64-128-1024, max-pool, FC
     512-256-k*k, + identity. x (B, N, in_features) -> (B, k, k)."""
 
+    F32_HEADS = ("fc3",)   # the transform stays f32 in a bf16 chain
+
     def __init__(self, k: int, in_features: int):
         super().__init__()
         self.k = k
@@ -63,7 +65,8 @@ class PointNetEncoder(nn.Module):
         x = torch.cat([xyz, x[..., 3:]], dim=-1) if self.channel > 3 else xyz
         h = torch.relu(self.bn1(self.conv1(x)))
         trans_feat = self.fstn(h)
-        pointfeat = torch.bmm(h, trans_feat)
+        # the 64 x 64 transform's product accumulates in f32
+        pointfeat = torch.bmm(h.float(), trans_feat).to(h.dtype)
         h = torch.relu(self.bn2(self.conv2(pointfeat)))
         h = self.bn3(self.conv3(h))
         glob = max_pool_points(h, dim=1, keepdim=True).expand(-1, h.shape[1], -1)
@@ -73,6 +76,8 @@ class PointNetEncoder(nn.Module):
 class PointSeg(nn.Module):
     """Per-point segmentation: x (B, N, channel) -> (log_probs (B, N,
     num_class), trans_feat)."""
+
+    F32_HEADS = ("conv4",)   # the class logits stay f32 in a bf16 chain
 
     def __init__(self, num_class: int = 2, channel: int = 4):
         super().__init__()

@@ -12,6 +12,9 @@ from .common import BatchNorm, Dense
 
 
 class VotingModule(nn.Module):
+    # the offsets and residuals stay f32 in a bf16 chain
+    F32_HEADS = ("conv3",)
+
     def __init__(self, vote_factor: int = 1, in_dim: int = 256):
         super().__init__()
         self.vote_factor, self.in_dim = vote_factor, in_dim

@@ -61,8 +61,11 @@ def write_oriented_bbox_ply(path: str, corners_list: np.ndarray,
 
 
 def write_png(path: str, image: np.ndarray) -> None:
-    """An (H, W) uint8 image as an 8-bit grey PNG."""
-    h, w = image.shape
+    """An (H, W) uint8 image as an 8-bit grey PNG, or an (H, W, 3) one as an
+    8-bit RGB PNG."""
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    h, w = image.shape[:2]
+    color_type = 2 if image.ndim == 3 else 0
 
     def chunk(kind: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + kind + data
@@ -71,7 +74,8 @@ def write_png(path: str, image: np.ndarray) -> None:
     rows = b"".join(b"\0" + image[r].tobytes() for r in range(h))
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0,
+                                                0))
                 + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
 
 

@@ -9,7 +9,9 @@ Module names in the port follow the flax tree, so the bridge is a rename:
   `mean`/`var` -> `running_mean`/`running_var`;
 - CBatchNorm `gamma_kernel`/`gamma_bias` -> `gamma.weight`/`gamma.bias`,
   `beta_kernel`/`beta_bias` -> `beta.weight`/`beta.bias`, and the stats of
-  its `_AffinelessBatchNorm` (`bn`) -> `bn.running_mean`/`bn.running_var`.
+  its `_AffinelessBatchNorm` (`bn`) -> `bn.running_mean`/`bn.running_var`;
+- SelfAttention's `gamma` -> `gamma` (its `query`/`key`/`value` are Dense;
+  SetAbstractionMSG's branches are SharedMLPs `mlp0`, `mlp1`, ...).
 """
 
 from __future__ import annotations
@@ -19,7 +21,12 @@ import torch
 from torch import nn
 
 from .models.common import BatchNorm, Dense
-from .models.layers import CBatchNorm, EncoderLatent, _AffinelessBatchNorm
+from .models.layers import (
+    CBatchNorm,
+    EncoderLatent,
+    SelfAttention,
+    _AffinelessBatchNorm,
+)
 
 _PARAM_LEAVES = {
     "kernel": ("weight", True),
@@ -29,6 +36,7 @@ _PARAM_LEAVES = {
     "gamma_bias": ("gamma.bias", False),
     "beta_kernel": ("beta.weight", True),
     "beta_bias": ("beta.bias", False),
+    "gamma": ("gamma", False),   # SelfAttention's gate
 }
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
@@ -80,6 +88,8 @@ def flax_flat(model: nn.Module) -> dict[str, np.ndarray]:
             put("params", prefix, "kernel", m.weight, True)
             if m.bias is not None:
                 put("params", prefix, "bias", m.bias)
+        elif isinstance(m, SelfAttention):
+            put("params", prefix, "gamma", m.gamma)
         elif isinstance(m, (BatchNorm, _AffinelessBatchNorm)):
             if isinstance(m, BatchNorm):
                 put("params", prefix, "scale", m.weight)
@@ -173,6 +183,8 @@ def _fill(modules, state: dict, g: torch.Generator, noise: float) -> None:
             if module.bias is not None:
                 fill(module.bias, torch.empty(module.bias.shape).uniform_(
                     -bound, bound, generator=g))
+        elif isinstance(module, SelfAttention):
+            module.gamma.zero_()
         elif isinstance(module, (BatchNorm, _AffinelessBatchNorm)):
             module.running_mean.zero_()
             module.running_var.fill_(1.0)

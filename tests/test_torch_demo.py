@@ -252,19 +252,48 @@ def test_generate_grids_and_generate_agree(pair, demo_outputs):
         np.testing.assert_array_equal(a.faces, b.faces)
 
 
+def _png_mask(path):
+    """Non-background pixels of a PNG (any color channel below 250/255)."""
+    import matplotlib.image
+
+    img = matplotlib.image.imread(path)
+    return (img[..., :3] < 250 / 255).any(-1)
+
+
+def _dilate(mask, r):
+    out = mask.copy()
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            out |= np.roll(np.roll(mask, dy, 0), dx, 1)
+    return out
+
+
+# pred.png: at least this share of each render's non-background pixels lies
+# within 3 pixels of the other's
+PNG_OVERLAP = 0.9
+
+
 def test_save_visualization_matches_jax(demo_outputs, tmp_path):
+    """The demo's whole file set against JAX's: every file byte-identical
+    (`scene.html` included), except `pred.png` (the port's numpy render
+    against JAX's matplotlib one: their non-background pixels overlap, see
+    PNG_OVERLAP)."""
     cfg, data, (parsed, gen, meshes), _ = demo_outputs
     got_dir = demo.save_visualization(data, parsed, gen, meshes,
-                                      str(tmp_path / "port"))
+                                      str(tmp_path / "port" / "scene"))
+    demo.visualize(data, parsed, gen, meshes,
+                   os.path.join(got_dir, "pred.png"))
     np_data = {"point_clouds": data["point_clouds"].numpy()}
     want_dir = jdemo.save_visualization(None, np_data, parsed, gen, meshes,
-                                        str(tmp_path / "jax"))
+                                        str(tmp_path / "jax" / "scene"))
+    jdemo.visualize(np_data, parsed, gen, meshes,
+                    os.path.join(want_dir, "pred.png"))
     got_files = sorted(os.listdir(got_dir))
-    assert got_files == sorted(set(os.listdir(want_dir)) - {"scene.html"})
+    assert got_files == sorted(os.listdir(want_dir))
     n_valid = int(gen["valid"].sum())
     n_meshes = sum(bool(v) and len(m.vertices) > 0
                    for v, m in zip(gen["valid"][0], meshes))
-    assert len(got_files) == 2 + n_meshes and n_meshes > 0
+    assert len(got_files) == 4 + n_meshes and n_meshes > 0
     for name in got_files:
         a, b = os.path.join(got_dir, name), os.path.join(want_dir, name)
         if name.endswith(".npz"):
@@ -275,6 +304,11 @@ def test_save_visualization_matches_jax(demo_outputs, tmp_path):
             assert za["proposal_map"].shape == (n_valid, 1)
             for k in za.files:
                 assert_equal(za[k], zb[k], what=k)
+        elif name == "pred.png":
+            ma, mb = _png_mask(a), _png_mask(b)
+            assert ma.shape == mb.shape == (960, 1200)
+            assert (ma & _dilate(mb, 3)).sum() >= PNG_OVERLAP * ma.sum()
+            assert (mb & _dilate(ma, 3)).sum() >= PNG_OVERLAP * mb.sum()
         else:
             assert open(a, "rb").read() == open(b, "rb").read(), name
     scan = TriMesh.load(os.path.join(got_dir, "000000_pc.ply"))
@@ -287,7 +321,7 @@ def test_save_visualization_keeps_the_box_of_an_empty_mesh(demo_outputs,
     empty = [TriMesh(np.zeros((0, 3)), np.zeros((0, 3))) for _ in meshes]
     out = demo.save_visualization(data, parsed, gen, empty, str(tmp_path))
     assert sorted(os.listdir(out)) == [
-        "000000_pc.ply", "000000_pred_confident_nms_bbox.npz"]
+        "000000_pc.ply", "000000_pred_confident_nms_bbox.npz", "scene.html"]
     z = np.load(os.path.join(out, "000000_pred_confident_nms_bbox.npz"))
     assert z["obbs"].shape == (int(gen["valid"].sum()), 7)
 
@@ -411,8 +445,9 @@ def test_cli_demo_on_cpu_writes_the_files(tmp_path, monkeypatch, capsys):
                     "--demo_path", ROOM, "--device", "cpu"])
     assert out == os.path.join("out/demo", "visualization", "synthetic_room")
     files = sorted(os.listdir(tmp_path / out))
-    assert "000000_pc.ply" in files
-    assert "000000_pred_confident_nms_bbox.npz" in files
+    for name in ("000000_pc.ply", "000000_pred_confident_nms_bbox.npz",
+                 "scene.html", "pred.png"):
+        assert name in files and os.path.getsize(tmp_path / out / name) > 0
     z = np.load(tmp_path / out / "000000_pred_confident_nms_bbox.npz")
     k = z["obbs"].shape[0]
     assert z["obbs"].shape == (k, 7) and z["proposal_map"].shape == (k, 1)

@@ -1,5 +1,5 @@
-"""Boundaries of the port: no JAX, flax, optax, orbax, YAML package or
-`rfdnet_tpu` inside it (every module of the package, scanned),
+"""Boundaries of the port: no JAX, flax, optax, orbax, YAML package,
+matplotlib or `rfdnet_tpu` inside it (every module of the package, scanned),
 its settings equal the test config's, and its entry points never drop to
 the CPU on their own.
 
@@ -21,7 +21,8 @@ from rfdnet_tpu_torch import demo
 from torch_parity import TEST_YAML
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "yaml", "rfdnet_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "yaml", "matplotlib",
+             "rfdnet_tpu")
 
 
 def _port_sources():

@@ -211,10 +211,6 @@ def test_generate_meshes_matches_jax():
 
 @pytest.mark.parametrize("kwargs, item", [
     ({"upsampling_steps": 2, "mise_budgets": [1024, 4096]}, "MISE"),
-    ({"refinement_step": 30}, "refine"),
-    ({"simplify_nfaces": 500}, "simplify"),
-    ({"with_normals": True}, "normals"),
-    ({"extractor": "marching_tetrahedra"}, "marching tetrahedra"),
 ])
 def test_unported_generator_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):

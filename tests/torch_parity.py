@@ -10,7 +10,9 @@ loads them through `weights.from_flax`.
 
 from __future__ import annotations
 
+import fcntl
 import functools
+import hashlib
 import os
 
 import jax
@@ -24,8 +26,19 @@ from rfdnet_tpu.models import ISCNet
 from rfdnet_tpu_torch import config as tconfig
 from rfdnet_tpu_torch.weights import from_flax
 
+# the suite runs several test processes at once (xdist workers): torch's
+# default of one intra-op thread a core would oversubscribe the cores
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // 4))
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEST_YAML = os.path.join(ROOT, "configs", "iscnet_test.yaml")
+# set-up shared by the test processes of a run (and later runs): computed
+# once under a lock, then read (beside JAX's compilation cache)
+CACHE_DIR = os.path.join(ROOT, ".jax_cache", "torch_parity")
+# what a cached set-up depends on besides its arguments
+_CACHE_SOURCES = ("rfdnet_tpu/models", "rfdnet_tpu/config",
+                  "rfdnet_tpu/data/synthetic.py", "configs/iscnet_test.yaml",
+                  "tests/torch_parity.py")
 
 # f32 module outputs (tests/test_parity_torch.py:41-42)
 ATOL, RTOL = 3e-5, 2e-4
@@ -35,8 +48,8 @@ def perturb(variables, seed: int, noise: float = 0.02):
     """numpy copy of `variables` with N(0, noise^2) added to every leaf."""
     rng = np.random.RandomState(seed)
     return jax.tree_util.tree_map(
-        lambda leaf: np.asarray(leaf) + rng.randn(*np.shape(leaf)).astype(
-            np.float32) * noise,
+        lambda leaf: np.asarray(leaf) + np.asarray(
+            rng.randn(*np.shape(leaf)), np.float32) * noise,
         jax.tree_util.tree_map(np.asarray, dict(variables)),
     )
 
@@ -83,6 +96,56 @@ def scene(seed: int, num_points: int = 4096) -> np.ndarray:
     )["point_clouds"]
 
 
+def _source_digest() -> str:
+    h = hashlib.sha1(jax.__version__.encode())
+    for rel in _CACHE_SOURCES:
+        path = os.path.join(ROOT, rel)
+        files = ([os.path.join(d, f) for d, _, fs in os.walk(path)
+                  for f in fs if f.endswith(".py")]
+                 if os.path.isdir(path) else [path])
+        for f in sorted(files):
+            h.update(f.encode())
+            with open(f, "rb") as fh:
+                h.update(fh.read())
+    return h.hexdigest()
+
+
+def cached_tree(key: str, compute):
+    """compute() (a nested dict of numpy arrays), stored in CACHE_DIR under
+    `key` and a digest of the sources it depends on: the first process
+    computes it under a file lock, the others wait and read the file."""
+    os.makedirs(CACHE_DIR, exist_ok=True)
+    path = os.path.join(CACHE_DIR, f"{key}-{_source_digest()[:16]}.npz")
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(path):
+                flat = {"/".join(k): np.asarray(v) for k, v in
+                        _flatten(compute())}
+                tmp = path + f".{os.getpid()}.tmp.npz"
+                np.savez(tmp, **flat)
+                os.replace(tmp, path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    tree = {}
+    with np.load(path) as npz:
+        for key_path in npz.files:
+            node = tree
+            *parents, leaf = key_path.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = npz[key_path]
+    return tree
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
 def iscnet_pair(generate_limit: int = 8, seed: int = 0):
     """(jax model, numpy variables, port model on the CPU) of the test
     config, the variables from `init` through `ISCNet.generate`, which
@@ -93,19 +156,57 @@ def iscnet_pair(generate_limit: int = 8, seed: int = 0):
 
     cfg = Config(TEST_YAML, mode="test", make_dirs=False)
     model = cfg.build_model(generate_limit=generate_limit)
-    pc = jnp.asarray(scene(seed))
-    variables = jax.jit(lambda pc: model.init(
-        jax.random.PRNGKey(seed), {"point_clouds": pc},
-        method=ISCNet.generate, decode_grid_res=2,
-    ))(pc)
-    variables = perturb(variables, seed)
-    z_dim, c_dim = cfg.config["data"]["z_dim"], cfg.config["data"]["c_dim"]
-    encoder = init_flax(EncoderLatent(z_dim=z_dim), seed + 1000,
-                        jnp.zeros((1, 8, 3)), jnp.zeros((1, 8)),
-                        jnp.zeros((1, c_dim)))
-    variables["params"]["completion"]["encoder_latent"] = encoder["params"]
+
+    def init():
+        pc = jnp.asarray(scene(seed))
+        variables = jax.jit(lambda pc: model.init(
+            jax.random.PRNGKey(seed), {"point_clouds": pc},
+            method=ISCNet.generate, decode_grid_res=2,
+        ))(pc)
+        variables = perturb(variables, seed)
+        z_dim = cfg.config["data"]["z_dim"]
+        c_dim = cfg.config["data"]["c_dim"]
+        encoder = init_flax(EncoderLatent(z_dim=z_dim), seed + 1000,
+                            jnp.zeros((1, 8, 3)), jnp.zeros((1, 8)),
+                            jnp.zeros((1, c_dim)))
+        variables["params"]["completion"]["encoder_latent"] = (
+            encoder["params"])
+        return variables
+
+    variables = cached_tree(f"iscnet_pair-{generate_limit}-{seed}", init)
     port = tconfig.build_model(generate_limit=generate_limit, device="cpu")
     return model, variables, load_port(port, variables)
+
+
+def iscnet_decoder_pair(generate_limit: int = 8, seed: int = 0):
+    """`iscnet_pair`'s values for the occupancy decoder alone, without
+    compiling `ISCNet.generate`: (jax model, the variables that
+    `decode_occupancy` reaches, port model on the CPU with them loaded
+    into its completion module). Flax draws a parameter from its module's
+    path, so an init through `decode_occupancy` gives the whole model's
+    decoder values; `perturb`'s noise is drawn over the whole model's
+    leaves (their shapes from `jax.eval_shape`) and the decoder's kept."""
+    cfg = Config(TEST_YAML, mode="test", make_dirs=False)
+    model = cfg.build_model(generate_limit=generate_limit)
+    shapes = jax.eval_shape(lambda pc: model.init(
+        jax.random.PRNGKey(seed), {"point_clouds": pc},
+        method=ISCNet.generate, decode_grid_res=2), jnp.asarray(scene(seed)))
+    noise = perturb(jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype), shapes), seed)
+    n, c_dim = generate_limit, cfg.config["data"]["c_dim"]
+    decoder = _jit_arrays(lambda *a: model.init(
+        jax.random.PRNGKey(seed), *a, method=ISCNet.decode_occupancy),
+        jnp.zeros((n, c_dim)), jnp.zeros((n, model.num_class)),
+        jnp.zeros((n, 8, 3)))
+    variables = {k: {"completion": jax.tree_util.tree_map(
+        lambda v, e: np.asarray(v) + e, decoder[k]["completion"],
+        noise[k]["completion"])} for k in decoder}
+    port = tconfig.build_model(generate_limit=generate_limit, device="cpu")
+    for name in variables["params"]["completion"]:
+        load_port(getattr(port.completion, name),
+                  {k: v["completion"].get(name, {})
+                   for k, v in variables.items()})
+    return model, variables, port.eval()
 
 
 def t(x) -> torch.Tensor:
