@@ -8,8 +8,10 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
 1. device: the card's name and power limit (`nvidia-smi`), then both
    CUDA kernels (`nvcc`) and the host libraries (`g++`: the meshing and
    the QEM simplification) built from `rfdnet_tpu_torch/csrc/` at once, with each kernel instantiation's
-   registers and spills as `ptxas` reports them (every route of
-   `fps_route` must find its one instantiation there, with no spill).
+   registers, spills and static shared memory as `ptxas` reports them
+   (every route of `fps_route` must find its one instantiation there,
+   with no spill; `fps_resident` adds each resident instantiation's
+   dynamic shared memory).
 2. fps: the FPS kernels against the plain torch version (indices equal)
    at the five shapes of the main path, on the 80000-point demo scene
    (the first five times over), at the detection path's `vote_fps` shape
@@ -26,7 +28,12 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    (operations) and `chain_bound_ms`: its steps times the time of one
    step of the stub kernel (the route's reductions, barriers and
    exchange, no point work), which is the least a chain of dependent
-   steps can take on that route.
+   steps can take on that route. `flag_off`: the kernel with
+   `skip_near_origin=False` against the plain version with it (indices
+   equal) at SA1's shape at batch 1 and 8 and at a slab of
+   `parallel.halo.fps_bucketed` (20000 -> 2048), timed, with launches;
+   and on clouds near the origin at every route, where the flag changes
+   the selection.
 3. cbn_decode: the fused CBN decoder kernel against its plain version at
    64 proposals x 32^3 points, f32 and bf16 operands.
 4. slice: the test config's generation path at full width (80000
@@ -128,6 +135,34 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    pass and a second), the items equal, and a four-epoch stage-3 run at
    batch 8 (four train steps) for each route (`device.worker_type`) with
    its loader wait a step.
+14. serve: batched serving (`parallel.serve.make_sharded_generate`) of
+   the test config on eight synthetic 80000-point scenes (12 objects
+   each): the batch of 8 in one call with no group, the same batch in a
+   one-rank NCCL group, and 8 batch-1 calls; ms a batch, scenes a
+   second, the per-scene overhead (t_8 / 8) / t_1 - 1, peak memory,
+   launches (FPS 5 and CBN 1 a call); the AP tables of the three equal
+   exactly, the grids within the CBN tolerance where a slot holds the
+   same proposal; the CBN kernel against its plain version on the
+   operands of the batch's decode (512 x 32768; the plain version and the
+   cuBLAS chain in chunks of 64 proposals).
+15. point_shard: on the demo scene (80000 points) in a one-rank NCCL
+   group, `sa1_forward_sharded` against the model's SA1 (indices equal,
+   features within 1e-5 x scale), `ball_query_halo` against `ball_query`
+   and `fps_bucketed` with a covering budget against exact FPS (indices
+   equal, with and without the near-origin exclusion, two FPS launches a
+   call), each timed beside the one-process op.
+16. ddp: `cli.run_train` of the stage-3 config at batch 8 on eight
+   80000-point scenes, three epochs (a train and a val step each), three
+   times: alone, in a one-rank NCCL group (sync-BN, the global-batch
+   loss, the gradient all-reduce), alone again (the run-to-run floor:
+   the backward's atomic adds sum in any order). The group run against
+   the first run, at fixed limits set above the floor: the first train
+   step's loss terms and running statistics within 1e-5 relative, its
+   gradients within DDP_GRAD_REL (relative L2), every later step's loss
+   terms within DDP_STEP_LOSS_REL. The worst single gradient tensor and
+   the final parameters are reported, not checked (see `phase_ddp`).
+   Device ms a step, the gradient all-reduce's ms, sync-BN all-reduces
+   a step, launches.
 Then the `kernels` summary line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -279,8 +314,9 @@ def phase_device():
     logs = _native.build()
     build_s = round(time.perf_counter() - t0, 3)
     ptxas = {name: _native.ptxas_summary(log) for name, log in logs.items()}
-    emit(phase="device", nvidia_smi=smi, build_s=build_s, ptxas=ptxas)
     resident = fps_resident_ptxas(ptxas["fps"])
+    emit(phase="device", nvidia_smi=smi, build_s=build_s, ptxas=ptxas,
+         fps_resident=resident)
     for route in fps.RESIDENT_ROUTES:
         rows = [r for r in resident if not r["stub"]
                 and (r["clustered"], r["threads"], r["ppt"])
@@ -291,7 +327,9 @@ def phase_device():
 
 def fps_resident_ptxas(rows):
     """The `ptxas` rows of the resident FPS kernel's instantiations, with
-    the template arguments read from the mangled name."""
+    the template arguments read from the mangled name: registers a
+    thread, spills, static shared memory (`smem`) and the dynamic shared
+    memory a launch gives it (`smem_dynamic`, the CTA's points)."""
     out = []
     for row in rows:
         m = re.search(r"fps_residentILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
@@ -300,7 +338,8 @@ def fps_resident_ptxas(rows):
             t, p, c, stub = (int(g) for g in m.groups())
             out.append(dict(threads=t, ppt=p, clustered=bool(c),
                             stub=bool(stub), registers=row["registers"],
-                            spill=row["spill"]))
+                            spill=row["spill"], smem=row.get("smem"),
+                            smem_dynamic=t * p * 12))
     return out
 
 
@@ -397,8 +436,10 @@ def phase_fps(xyz, votes, reps: int = 3, sa1_repeats: int = 5):
     check(any(e["route"]["kind"] == "streaming" for e in edges),
           "fps: no edge shape reached the streaming kernel")
     batch_rows = fps_batch_rows(xyz, TRAIN_BATCH, reps)
-    emit(phase="fps", shapes=rows, edges=edges, batch_shapes=batch_rows)
-    return rows, batch_rows
+    flag_off = fps_flag_off_rows(xyz, reps)
+    emit(phase="fps", shapes=rows, edges=edges, batch_shapes=batch_rows,
+         flag_off=flag_off)
+    return rows, batch_rows, flag_off
 
 
 def fps_batch_rows(xyz, b: int, reps: int = 3):
@@ -433,6 +474,76 @@ def fps_batch_rows(xyz, b: int, reps: int = 3):
     return rows
 
 
+def fps_flag_off_rows(xyz, reps: int = 3):
+    """The kernel with `skip_near_origin=False` against `fps_plain` with
+    the same flag, indices equal: SA1's 80000 -> 2048 at batch 1 and at
+    batch 8 (the clouds of `fps_batch_rows`) and one slab of
+    `parallel.halo.fps_bucketed` (the scene's first quarter in x order at
+    4 ranks -> `local_budget` samples), each timed, with its launches and
+    bound; then clouds near the origin at each route (one CTA, a cluster,
+    batch 8, streaming), where the flag changes the selection: a block of
+    a quarter of the points within 2e-3 of the origin, index 1 among them
+    (indices equal to the plain version's), and every point there (and
+    also the kernel's flag-on indices differ from its flag-off ones)."""
+    from rfdnet_tpu_torch.ops.fps import (RESIDENT_ROUTES, fps_plain,
+                                          fps_route, furthest_point_sample)
+    from rfdnet_tpu_torch.parallel.halo import local_budget, slab_sort
+
+    b = TRAIN_BATCH
+    scale = 1 + 0.01 * torch.arange(b, device=xyz.device)[:, None, None]
+    n_slab = xyz.shape[1] // 4
+    timed = [("sa1", xyz, 2048), (f"sa1_b{b}", (xyz * scale).contiguous(), 2048),
+             (f"slab_{n_slab}", slab_sort(xyz)[0][:, :n_slab].contiguous(),
+              local_budget(2048, 4, 4, n_slab))]
+    rows = []
+    for name, pts, npoint in timed:
+        B, N, steps = pts.shape[0], pts.shape[1], npoint - 1
+        reset_launches()
+        k = furthest_point_sample(pts, npoint, skip_near_origin=False)
+        launches = read_launches()["fps"]
+        p = fps_plain(pts, npoint, skip_near_origin=False)
+        bnd, by = bound_ms(B * (N * 12 + npoint * 4), 10.0 * B * N * steps,
+                           F32_FLOPS)
+        rows.append(dict(
+            name=name, b=B, n=N, npoint=npoint, launches=launches,
+            equal=bool(torch.equal(k, p)),
+            max_abs_err=int((k.long() - p.long()).abs().max()),
+            route=dataclasses.asdict(fps_route(N, B)),
+            ms=cuda_ms(lambda: furthest_point_sample(
+                pts, npoint, skip_near_origin=False), reps),
+            ms_flag_on=cuda_ms(lambda: furthest_point_sample(pts, npoint),
+                               reps),
+            plain_ms=cuda_ms(lambda: fps_plain(
+                pts, npoint, skip_near_origin=False), 1, 0),
+            bound_ms=bnd, bound_by=by))
+        check(rows[-1]["equal"] and launches == 1,
+              f"fps flag off {name}: {rows[-1]}")
+    g = torch.Generator().manual_seed(SEED + 4)
+    edges = []
+    for B, N in ((1, 3000), (1, 20000), (b, 20000),
+                 (1, RESIDENT_ROUTES[-1].capacity + 1)):
+        pts = torch.rand(B, N, 3, generator=g) * 4 - 2
+        block = pts.clone()
+        block[:, 1:N // 4] *= 1e-3
+        for kind, cloud, npoint in (("block", block, 300),
+                                    ("all", pts * 1e-3, 40)):
+            cloud = cloud.to(xyz.device).contiguous()
+            off = furthest_point_sample(cloud, npoint, skip_near_origin=False)
+            on = furthest_point_sample(cloud, npoint)
+            edges.append(dict(
+                name=f"near_origin_{kind}_{N}" + (f"_b{B}" if B > 1 else ""),
+                b=B, n=N, npoint=npoint,
+                route=dataclasses.asdict(fps_route(N, B)),
+                equal=bool(torch.equal(off, fps_plain(
+                    cloud, npoint, skip_near_origin=False))),
+                differs_from_flag_on=not bool(torch.equal(off, on))))
+            check(edges[-1]["equal"] and (kind == "block" or edges[-1][
+                "differs_from_flag_on"]), f"fps flag off: {edges[-1]}")
+    check({e["route"]["kind"] for e in edges} == {"resident", "streaming"},
+          "fps flag off: a route not reached")
+    return dict(rows=rows, edges=edges)
+
+
 def library_chain(h0, sc, sh, w0s, b0s, w1s, b1s, w_out, b_out, dtype):
     """The decode chain with each 256x256 product one cuBLAS call in the
     working dtype (bf16 tensor cores in the bf16 mode): the yardstick."""
@@ -462,11 +573,15 @@ def decoder_operands(model, nb: int, res: int, dev):
         return onet.fused_operands(pts[None].expand(nb, -1, -1), z, c)
 
 
-def cbn_row(ops, dtype=torch.float32, reps: int = 3, points=None) -> dict:
+def cbn_row(ops, dtype=torch.float32, reps: int = 3, points=None,
+            chunk=None) -> dict:
     """The CBN kernel against its plain version on `ops` (the operands of
     `fused_cbn_decode`) in one operand type: error, tolerance, times of
     the kernel, the plain version and the cuBLAS chain, and the bound, of
     `points` points (the real ones of a padded decode; all when None).
+    With `chunk`, the plain version and the chain run over that many
+    proposals at a time (a decode too large for them in one go; the
+    proposals are independent), their times summed over the chunks.
     f32: the same math, sums of 256 products in another order chained
     through 10 layers. bf16: the kernel and the plain version round at the
     same points, so they differ only where an f32 sum in another order
@@ -477,8 +592,12 @@ def cbn_row(ops, dtype=torch.float32, reps: int = 3, points=None) -> dict:
 
     nb, T = ops[0].shape[0], ops[0].shape[1]
     points = nb * T if points is None else points
+    chunk = chunk or nb
+    parts = [(ops[0][i:i + chunk], ops[1][i:i + chunk], ops[2][i:i + chunk],
+              *ops[3:]) for i in range(0, nb, chunk)]
     k = fused_cbn_decode(*ops, mxu_dtype=dtype)
-    p = cbn_decode_plain(*ops, mxu_dtype=dtype)
+    p = torch.cat([cbn_decode_plain(*part, mxu_dtype=dtype)
+                   for part in parts])
     torch.cuda.synchronize()
     scale = max(float(p.abs().max()), 1.0)
     b, by = bound_ms(points * 256 * 4 + points * 4,
@@ -488,8 +607,10 @@ def cbn_row(ops, dtype=torch.float32, reps: int = 3, points=None) -> dict:
         nb=nb, t=T, points=points, out=k, max_abs_err=float((k - p).abs().max()),
         tol=(1e-4 if dtype == torch.float32 else 1e-3) * scale, scale=scale,
         ms=cuda_ms(lambda: fused_cbn_decode(*ops, mxu_dtype=dtype), reps),
-        plain_ms=cuda_ms(lambda: cbn_decode_plain(*ops, mxu_dtype=dtype), 1),
-        library_ms=cuda_ms(lambda: library_chain(*ops, dtype), reps),
+        plain_ms=sum(cuda_ms(lambda: cbn_decode_plain(
+            *part, mxu_dtype=dtype), 1) for part in parts),
+        library_ms=sum(cuda_ms(lambda: library_chain(*part, dtype), reps)
+                       for part in parts),
         bound_ms=b, bound_by=by)
 
 
@@ -1828,19 +1949,30 @@ def train_pairs(paths: dict, tmp: str, epochs: int):
 
 class StepProbe:
     """Wraps the loop's train and eval steps: each step's phase, loss
-    terms and kernel launches (counts read before and after it)."""
+    terms and kernel launches (counts read before and after it), and with
+    `keep_first` the first train step's gradients and the running
+    statistics after it."""
 
-    def __init__(self):
+    def __init__(self, keep_first: bool = False):
         from rfdnet_tpu_torch.train import loop
 
         self.loop, self.steps = loop, []
         self.saved = (loop.train_step, loop.eval_step)
+        self.keep_first, self.first = keep_first, None
 
     def wrap(self, fn, phase):
         def step(*args, **kw):
             before = read_launches()
             losses = fn(*args, **kw)
             after = read_launches()
+            if self.keep_first and phase == "train" and self.first is None:
+                model, optimizer = args[:2]
+                self.first = dict(
+                    grads=[torch.zeros_like(p) if p.grad is None
+                           else p.grad.detach().clone()
+                           for p in optimizer.params],
+                    stats={n: b.detach().clone() for n, b
+                           in model.named_buffers() if "running" in n})
             self.steps.append(dict(phase=phase, losses={
                 k: float(v) for k, v in losses.items()}, launches={
                 k: after[k] - before[k] for k in after}))
@@ -2170,8 +2302,429 @@ def val_decode_row(trainer, cfg_path: str) -> dict:
     return row
 
 
-def kernel_summary(fps_rows, fps_batch, cbn_rows, launches, test_cbn,
-                   mise_cbn):
+# ---------------------------------------------------------------- parallel
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank NCCL process group on this process's card, as
+    `rfdnet_tpu_torch.parallel.mesh.init_group` joins a rank (at a free
+    port of localhost), destroyed on exit so that later phases run as
+    before."""
+    import torch.distributed as dist
+
+    from rfdnet_tpu_torch.parallel.mesh import free_port, init_group
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    os.environ.update(env)
+    group = init_group("nccl")
+    try:
+        yield group
+    finally:
+        dist.destroy_process_group()
+        for key in env:
+            os.environ.pop(key, None)
+
+
+def served_numpy(out) -> dict:
+    """`grids`, `parsed` and `gen` of a served output on the host."""
+    return {"grids": out["grids"].cpu().numpy(),
+            **{part: {k: v.cpu().numpy() for k, v in out[part].items()
+                      if v.dim()} for part in ("parsed", "gen")}}
+
+
+def ap_table(cfg, out, gt: dict, scenes: int) -> dict:
+    """The Tester's AP protocol (its `eval_config`) on served outputs:
+    each scene's confident proposals and GT boxes, one scene a step."""
+    from rfdnet_tpu_torch import config
+    from rfdnet_tpu_torch.eval import ap_helper
+
+    ec = config.eval_config(cfg)
+    calc = ap_helper.APCalculator(0.25, config.CLASS2TYPE)
+    for i in range(scenes):
+        calc.step(ap_helper.assembly_pred_map_cls(
+            {k: v[i:i + 1] for k, v in out["parsed"].items()},
+            conf_thresh=ec["conf_thresh"],
+            per_class_proposal=ec["per_class_proposal"],
+            proposal_ids=out["gen"]["proposal_ids"][i:i + 1]),
+            ap_helper.assembly_gt_map_cls(ap_helper.parse_groundtruths(
+                {k: v[i:i + 1] for k, v in gt.items()})))
+    return calc.compute_metrics(parallel=False)
+
+
+SERVE_SCENES = 8
+GT_KEYS = ("center_label", "heading_class_label", "heading_residual_label",
+           "size_class_label", "size_residual_label", "box_label_mask",
+           "sem_cls_label")
+
+
+def phase_serve(model, cfg, dev, reps: int = 3):
+    """Batched serving (`parallel.serve.make_sharded_generate`) of the test
+    config on eight synthetic 80000-point scenes with 12 objects each: one
+    batch of 8 with no group (`reps` timed calls after a warm-up), the
+    same batch in a one-rank NCCL group, and 8 batch-1 calls. The AP
+    tables of the three equal; the grids agree within the CBN kernel's
+    tolerance where the same proposal fills the same slot. Returns the
+    launches of each."""
+    import numpy as np
+
+    from rfdnet_tpu_torch import config
+    from rfdnet_tpu_torch.data.synthetic import synthetic_scene_batch
+    from rfdnet_tpu_torch.parallel.serve import make_sharded_generate
+
+    gen_cfg, ec = cfg["generation"], config.eval_config(cfg)
+    kw = dict(nms_iou=ec["nms_iou"], use_cls_nms=ec["cls_nms"],
+              dump_threshold=gen_cfg["dump_threshold"],
+              remove_empty_box=ec["remove_empty_box"],
+              decode_grid_res=gen_cfg["resolution_0"])
+    full = synthetic_scene_batch(
+        np.random.RandomState(SEED), batch_size=SERVE_SCENES,
+        num_points=cfg["data"]["num_point"], num_objects=12,
+        mean_size_arr=config.MEAN_SIZE_ARR)
+    gt = {k: full[k] for k in GT_KEYS}
+    pc = torch.from_numpy(full["point_clouds"]).to(dev)
+
+    def timed(serve, batches):
+        """A warm-up on batches[0], then one synchronised call a batch:
+        host ms each, the first's launches, every output on the host."""
+        serve({"point_clouds": batches[0]})
+        torch.cuda.synchronize()
+        ms, outs = [], []
+        for i, b in enumerate(batches):
+            if i == 0:
+                reset_launches()
+            t0 = time.perf_counter()
+            out = serve({"point_clouds": b})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                launches = read_launches()
+            outs.append(served_numpy(out))
+            del out
+        return ms, launches, outs
+
+    serve = make_sharded_generate(model, **kw)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ms8, launches8, outs8 = timed(serve, [pc] * reps)
+        peak = torch.cuda.max_memory_allocated()
+        ms1, launches1, singles = timed(
+            serve, [pc[i:i + 1] for i in range(SERVE_SCENES)])
+        with one_rank_group() as group:
+            msg, launches_g, outs_g = timed(
+                make_sharded_generate(model, group, **kw), [pc] * 2)
+        cbn = serve_decode_row(model, serve, pc)
+    b8, g8 = outs8[0], outs_g[0]
+    b1 = {"grids": np.concatenate([s["grids"] for s in singles]),
+          **{part: {k: np.concatenate([s[part][k] for s in singles])
+                    for k in singles[0][part]} for part in ("parsed", "gen")}}
+    tables = {name: ap_table(cfg, out, gt, SERVE_SCENES)
+              for name, out in (("b8", b8), ("b1", b1), ("group", g8))}
+
+    def grid_agreement(a, b):
+        same = (a["gen"]["valid"].reshape(-1) & b["gen"]["valid"].reshape(-1)
+                & (a["gen"]["proposal_ids"].reshape(-1, 3)
+                   == b["gen"]["proposal_ids"].reshape(-1, 3)).all(1))
+        err = float(np.abs(a["grids"][same] - b["grids"][same]).max()
+                    ) if same.any() else 0.0
+        scale = max(float(np.abs(b["grids"]).max()), 1.0)
+        return dict(same_slots=int(same.sum()), valid=int(
+            b["gen"]["valid"].sum()), max_abs_err=err, tol=1e-4 * scale)
+
+    t8, t1 = sum(ms8) / len(ms8), sum(ms1) / len(ms1)
+    res = gen_cfg["resolution_0"]
+    row = dict(
+        scenes=SERVE_SCENES, points=int(pc.shape[1]),
+        grids=list(b8["grids"].shape),
+        finite=bool(np.isfinite(b8["grids"]).all()),
+        batch8_ms=ms8, batch8_ms_mean=t8, scenes_per_s=SERVE_SCENES * 1e3 / t8,
+        batch1_ms=ms1, batch1_ms_mean=t1,
+        scenes_per_s_batch1=1e3 / t1,
+        overhead_per_scene=(t8 / SERVE_SCENES) / t1 - 1.0,
+        group_ms=msg, peak_memory_gib=peak / 2 ** 30,
+        launches=dict(b8=launches8, b1=launches1, group=launches_g),
+        b8_vs_b1=grid_agreement(b8, b1), group_vs_b8=grid_agreement(g8, b8),
+        ap_equal=tables["b8"] == tables["b1"] == tables["group"],
+        cbn_decode=cbn,
+        map_025=tables["b8"].get("mAP"),
+        pred_mask=int(b8["parsed"]["pred_mask"].sum()),
+        valid=int(b8["gen"]["valid"].sum()))
+    emit(phase="serve", **row)
+    check(row["grids"] == [SERVE_SCENES * model.generate_limit] + [res] * 3
+          and row["finite"], f"serve: grids {row['grids']}")
+    for name, counts in row["launches"].items():
+        check(counts == {"fps": 5, "cbn_decode": 1},
+              f"serve: launches of a {name} call {counts}")
+    check(row["ap_equal"], "serve: the AP tables of batch 8, batch 1 and the "
+          f"group differ: {tables}")
+    for name in ("b8_vs_b1", "group_vs_b8"):
+        a = row[name]
+        check(a["max_abs_err"] <= a["tol"] and a["same_slots"] >= 0.9 * a[
+            "valid"], f"serve: grids {name}: {a}")
+    check(cbn["max_abs_err"] <= cbn["tol"], f"serve: cbn_decode at the "
+          f"batch's decode: kernel vs plain {cbn}")
+    return row["launches"], cbn
+
+
+def serve_decode_row(model, serve, pc) -> dict:
+    """The CBN kernel against its plain version (`cbn_row`, the plain
+    version and the cuBLAS chain 64 proposals at a time) on the operands
+    of a served batch's grid decode, captured from a call."""
+    import rfdnet_tpu_torch.models.occnet as occnet
+
+    captured, launch = [], occnet.fused_cbn_decode
+
+    def capture(*ops, **kw):
+        captured.append(ops)
+        return launch(*ops, **kw)
+
+    occnet.fused_cbn_decode = capture
+    try:
+        serve({"point_clouds": pc})
+    finally:
+        occnet.fused_cbn_decode = launch
+    check(len(captured) == 1, f"serve: {len(captured)} decodes in a call")
+    row = cbn_row(captured[0], reps=2, chunk=64)
+    row.pop("out")
+    return row
+
+
+def ddp_run(cfg: dict, dev, group) -> dict:
+    """`cli.run_train` of `cfg` on `dev` with the data group `group` (or
+    none), seeded as the CLI seeds: each step's loss terms and launches,
+    the first train step's gradients and the running statistics after
+    it, the final parameters, the step times, the sync-BN all-reduces a
+    train step."""
+    import rfdnet_tpu_torch.models.common as common
+    from rfdnet_tpu_torch import cli
+    from rfdnet_tpu_torch.utils.logging import initiate_environment
+
+    calls = [0]
+    all_sum = common.all_sum
+
+    def counted(x, g):
+        calls[0] += g is not None
+        return all_sum(x, g)
+
+    common.all_sum = counted
+    initiate_environment(cfg.get("seed", 10))
+    try:
+        with StepProbe(keep_first=True) as probe:
+            trainer = cli.run_train(cfg, device=dev, group=group)
+            torch.cuda.synchronize()
+    finally:
+        common.all_sum = all_sum
+    train_steps = sum(s["phase"] == "train" for s in probe.steps)
+    return dict(
+        trainer=trainer, steps=probe.steps, **probe.first,
+        params={n: p.detach().clone()
+                for n, p in trainer.model.named_parameters()},
+        step_times=trainer.step_times,
+        sync_bn_per_train_step=calls[0] / max(train_steps, 1))
+
+
+def ddp_errors(a: dict, b: dict, lr: float) -> dict:
+    """How far run a is from run b. At the first train step (the same
+    parameters in both): its loss terms (largest relative error, floor
+    1e-6), gradients (relative L2 over all of them, and the largest of a
+    tensor's) and the running statistics after it (largest error of a
+    buffer over its largest value, floor 1). Over the run: the loss terms
+    of every step, and the final parameters' largest error over the
+    learning rate."""
+    def loss_rel(sa, sb):
+        return max(abs(sa["losses"][k] - v) / max(abs(v), 1e-6)
+                   for k, v in sb["losses"].items())
+
+    num = sum(float((ga - gb).double().square().sum())
+              for ga, gb in zip(a["grads"], b["grads"]))
+    den = sum(float(gb.double().square().sum()) for gb in b["grads"])
+    names = a["trainer"].optimizer.names
+    per = {n: float((ga - gb).double().norm() / gb.double().norm())
+           for n, ga, gb in zip(names, a["grads"], b["grads"])
+           if gb.abs().max() > 0}
+    worst = max(per, key=per.get)
+    return dict(
+        first_loss_rel=loss_rel(a["steps"][0], b["steps"][0]),
+        first_grad_rel_l2=(num / den) ** 0.5,
+        first_grad_rel_l2_worst_tensor=per[worst],
+        first_grad_worst_tensor=worst,
+        first_stats_rel=max(
+            float((a["stats"][n] - s).abs().max()
+                  / max(float(s.abs().max()), 1.0))
+            for n, s in b["stats"].items()),
+        step_loss_rel=[loss_rel(sa, sb)
+                       for sa, sb in zip(a["steps"], b["steps"])],
+        param_abs_over_lr=max(float((a["params"][n] - p).abs().max())
+                              for n, p in b["params"].items()) / lr)
+
+
+DDP_EPOCHS = 3
+# Fixed limits of the group run against the run alone, set above the
+# floor of two runs alone on NVIDIA H100 80GB HBM3 at 700 W: first-step
+# gradients 1.32e-6 and 1.33e-6 relative L2 (two calls), later steps'
+# loss terms up to 0.080 relative (Adam steps on gradients that differ
+# by the atomic adds' order).
+DDP_GRAD_REL = 1e-5
+DDP_STEP_LOSS_REL = 0.25
+
+
+def phase_ddp(dev, reps: int = 3):
+    """The data-parallel train step at world size 1 (see the module
+    docstring). Returns the launches of the group run's first train and
+    val steps."""
+    from rfdnet_tpu_torch import config
+    from rfdnet_tpu_torch.data.synthetic import write_scannet_scenes
+    from rfdnet_tpu_torch.parallel.mesh import all_reduce_grads
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            paths = write_scannet_scenes(os.path.join(tmp, "data"),
+                                         TRAIN_SCENES, seed=SEED,
+                                         num_points=80000, num_objects=12)
+            cfg_path = config_copy(
+                TRAIN_YAML, os.path.join(tmp, "ddp.yaml"),
+                train_pairs(paths, tmp, DDP_EPOCHS) + [
+                    ("finetune: true", "finetune: false", 1),
+                    ("weight:\n- out/iscnet/<stage2-run>/model_best\n",
+                     "weight: []\n", 1)])
+            cfg = config.load_config(cfg_path, mode="train")
+            runs = {"alone": ddp_run(cfg, dev, None)}
+            with one_rank_group() as group:
+                runs["group"] = run = ddp_run(cfg, dev, group)
+                params = run["trainer"].optimizer.params
+                for p, g in zip(params, run["grads"]):
+                    p.grad = g.clone()
+                all_reduce_ms = cuda_ms(
+                    lambda: all_reduce_grads(params, group), reps)
+                backend = group.backend
+                grad_mib = sum(p.numel() for p in params) * 4 / 2 ** 20
+            runs["alone_again"] = ddp_run(cfg, dev, None)
+        finally:
+            os.chdir(cwd)
+    lr = float(cfg["optimizer"]["lr"])
+    # the group run against the run without one, and the run-to-run floor
+    # of the same steps. Reported, not checked: the worst single tensor
+    # (a gradient that nearly cancels, whose relative error the atomic
+    # adds' order alone makes O(1)) and the final parameters (Adam
+    # normalises each update to about lr, so any two runs of three steps
+    # lie within about 6 lr of each other, faulty or not)
+    errors = ddp_errors(runs["group"], runs["alone"], lr)
+    floor = ddp_errors(runs["alone_again"], runs["alone"], lr)
+    train_ms = {name: [s["device_ms"] for s in r["step_times"]
+                       if s["phase"] == "train"] for name, r in runs.items()}
+    val_ms = {name: [s["device_ms"] for s in r["step_times"]
+                     if s["phase"] == "val"] for name, r in runs.items()}
+    group_steps = runs["group"]["steps"]
+    row = dict(
+        world=1, backend=backend, batch=cfg["train"]["batch_size"],
+        points=cfg["data"]["num_point"],
+        steps=[s["phase"] for s in group_steps],
+        losses=[dict(phase=s["phase"], **s["losses"]) for s in group_steps],
+        train_device_ms=train_ms, val_device_ms=val_ms,
+        all_reduce_ms=all_reduce_ms, grad_mib=grad_mib,
+        sync_bn_all_reduces_per_train_step=runs["group"][
+            "sync_bn_per_train_step"],
+        launches=[s["launches"] for s in group_steps],
+        group_vs_alone=errors, alone_vs_alone=floor,
+        limits=dict(first=1e-5, grad_rel_l2=DDP_GRAD_REL,
+                    step_loss_rel=DDP_STEP_LOSS_REL))
+    emit(phase="ddp", **row)
+    check(row["steps"] == ["train", "val"] * DDP_EPOCHS,
+          f"ddp: steps {row['steps']}")
+    for s in group_steps:
+        want = {"fps": 5, "cbn_decode": 0 if s["phase"] == "train" else 1}
+        check(s["launches"] == want, f"ddp: launches {s}")
+    check(errors["first_loss_rel"] <= 1e-5
+          and errors["first_stats_rel"] <= 1e-5,
+          f"ddp: first step's losses or statistics {errors}")
+    check(errors["first_grad_rel_l2"] <= DDP_GRAD_REL,
+          f"ddp: first step's gradients {errors} > {DDP_GRAD_REL}")
+    check(max(errors["step_loss_rel"]) <= DDP_STEP_LOSS_REL,
+          f"ddp: later steps' losses {errors} > {DDP_STEP_LOSS_REL}")
+    return group_steps[0]["launches"], group_steps[1]["launches"]
+
+
+def phase_point_shard(model, data, reps: int = 3):
+    """The point-sharded SA1 and the halo layout on the demo scene (80000
+    points) in a one-rank NCCL group: `sa1_forward_sharded` against the
+    model's SA1 (indices and centers equal, features within 1e-5 x
+    scale); `ball_query_halo` on the x-sorted cloud against `ball_query`
+    (indices equal) at SA1's 2048 centers; `fps_bucketed` with a budget
+    that covers the cloud against exact FPS of the sorted cloud (indices
+    equal), with and without the near-origin exclusion, its FPS kernel
+    launches counted. Returns those launches."""
+    from rfdnet_tpu_torch.ops import ball_query, furthest_point_sample
+    from rfdnet_tpu_torch.ops.fps import fps_plain
+    from rfdnet_tpu_torch.parallel import halo
+    from rfdnet_tpu_torch.parallel import point_shard as ps
+
+    pc = data["point_clouds"]
+    xyz, feats = pc[..., :3].contiguous(), pc[..., 3:4].contiguous()
+    sa = model.backbone.sa1
+    N, npoint = xyz.shape[1], sa.npoint
+    with torch.no_grad(), one_rank_group() as group:
+        backend = group.backend
+        new_xyz, new_feat, inds = sa(xyz, feats)
+        got_xyz, got_feat, got_inds = ps.sa1_forward_sharded(sa, xyz, feats,
+                                                             group)
+        scale = max(float(new_feat.abs().max()), 1.0)
+        sa1 = dict(
+            inds_equal=bool(torch.equal(got_inds.long(), inds.long())),
+            xyz_equal=bool(torch.equal(got_xyz, new_xyz)),
+            feat_err=float((got_feat - new_feat).abs().max()),
+            tol=1e-5 * scale,
+            ms=cuda_ms(lambda: sa(xyz, feats), reps),
+            sharded_ms=cuda_ms(lambda: ps.sa1_forward_sharded(
+                sa, xyz, feats, group), 1, 0),
+            fps_sharded_ms=cuda_ms(lambda: ps.fps_sharded(xyz, npoint,
+                                                          group), 1, 0),
+            fps_ms=cuda_ms(lambda: furthest_point_sample(xyz, npoint), reps),
+            ball_query_sharded_ms=cuda_ms(lambda: ps.ball_query_sharded(
+                xyz, new_xyz, sa.radius, sa.nsample, group), reps),
+            ball_query_ms=cuda_ms(lambda: ball_query(
+                xyz, new_xyz, sa.radius, sa.nsample), reps))
+        xs, ids = halo.slab_sort(xyz)
+        H = halo.required_halo(xs.cpu().numpy(), sa.radius, group.world)
+        where = torch.argsort(ids, dim=1)  # original index -> sorted
+        cidx = torch.gather(where, 1, inds.long())
+        want = ball_query(xyz, new_xyz, sa.radius, sa.nsample)
+        bq_h = halo.ball_query_halo(xs, ids, cidx, sa.radius, sa.nsample, H,
+                                    group)
+        bq = dict(H=H, equal=bool(torch.equal(bq_h, want.long())),
+                  ms=cuda_ms(lambda: halo.ball_query_halo(
+                      xs, ids, cidx, sa.radius, sa.nsample, H, group), reps))
+        k_cover = -(-N // npoint)  # local_budget covers the slab
+        bucketed = {}
+        for skip in (True, False):
+            reset_launches()
+            got = halo.fps_bucketed(xs, npoint, group, k=k_cover,
+                                    skip_near_origin=skip)
+            launches = read_launches()
+            exact = (furthest_point_sample(xs, npoint) if skip
+                     else fps_plain(xs, npoint, skip_near_origin=False))
+            bucketed["on" if skip else "off"] = dict(
+                local_m=halo.local_budget(npoint, group.world, k_cover, N),
+                equal=bool(torch.equal(got, exact.long())),
+                launches=launches,
+                ms=cuda_ms(lambda: halo.fps_bucketed(
+                    xs, npoint, group, k=k_cover, skip_near_origin=skip),
+                    reps))
+    emit(phase="point_shard", world=1, backend=backend, points=N,
+         npoint=npoint, radius=sa.radius, nsample=sa.nsample, sa1=sa1,
+         ball_query_halo=bq, fps_bucketed=bucketed)
+    check(sa1["inds_equal"] and sa1["xyz_equal"]
+          and sa1["feat_err"] <= sa1["tol"], f"point_shard: sa1 {sa1}")
+    check(bq["equal"], "point_shard: ball_query_halo differs from ball_query")
+    for name, row in bucketed.items():
+        check(row["equal"] and row["launches"] == {"fps": 2, "cbn_decode": 0},
+              f"point_shard: fps_bucketed ({name}) {row}")
+    return bucketed["off"]["launches"]
+
+
+def kernel_summary(fps_rows, fps_batch, fps_flag_off, cbn_rows, launches,
+                   test_cbn, mise_cbn):
     """One entry per kernel. `launches` and the times are the main path's
     (to the grids): FPS summed over its five calls there, the CBN decoder
     in the test config's f32 mode; `launches_by_path` has every driven
@@ -2179,11 +2732,18 @@ def kernel_summary(fps_rows, fps_batch, cbn_rows, launches, test_cbn,
     step, `train_val` its val step, `train_<route>_workers` a batch-2
     train step of the loader phase, `mesh_options` a scene with refine,
     simplify and normals, `modules_msg` one `SetAbstractionMSG` call,
-    `mlp_bf16` a scene of the bf16 chains), `detection_ms` the FPS calls of the
+    `mlp_bf16` a scene of the bf16 chains, `serve_b8` / `serve_b1` /
+    `serve_group` a served batch of 8, a batch-1 call and the batch of 8
+    in a one-rank group, `point_shard_bucketed` one `fps_bucketed` call,
+    `ddp_train` / `ddp_val` a train and a val step in a one-rank group),
+    `detection_ms` the FPS calls of the
     detection path (SA1-4 and vote_fps), the FPS entry's `train_batch`
-    its five calls of a train step at batch 8, and the CBN entry's
-    `test_shapes` the kernel at the test path's two other decodes and at
-    the val step's (`train_val_t2048`, 80 proposals), and `mise_shapes` at
+    its five calls of a train step at batch 8 and `flag_off` the kernel
+    with `skip_near_origin=False` at SA1's shape at batch 1 and 8 and at
+    an `fps_bucketed` slab (`launches` a call), and the CBN entry's
+    `test_shapes` the kernel at the test path's two other decodes, at
+    the val step's (`train_val_t2048`, 80 proposals) and at a served batch
+    of 8 scenes' (`serve_b8`, 512 proposals), and `mise_shapes` at
     each level of a MISE scene's octree (`launches` a scene, `points` the
     real points the bound counts)."""
     f32 = cbn_rows["float32"]
@@ -2212,7 +2772,11 @@ def kernel_summary(fps_rows, fps_batch, cbn_rows, launches, test_cbn,
                  bound_ms=sum(r["bound_ms"] for r in fps_batch),
                  max_abs_err=max(r["max_abs_err"] for r in fps_batch),
                  active_clusters={r["name"]: r["active_clusters"]
-                                  for r in fps_batch})),
+                                  for r in fps_batch}),
+             flag_off={r["name"]: {k: r[k] for k in (
+                 "b", "n", "npoint", "launches", "max_abs_err", "ms",
+                 "ms_flag_on", "plain_ms", "bound_ms", "bound_by")}
+                 for r in fps_flag_off["rows"]}),
         dict(name="cbn_decode", route="cuda",
              source="rfdnet_tpu_torch/csrc/cbn_decoder.cu",
              replaces="rfdnet_tpu/ops/cbn_decoder.py:160",
@@ -2256,8 +2820,8 @@ def main() -> int:
     cfg, data, model = slice_setup(dev)
     with torch.no_grad():
         votes = model.detect(data["point_clouds"])[0]["vote_xyz"].contiguous()
-    fps_rows, fps_batch = phase_fps(data["point_clouds"][..., :3].contiguous(),
-                                    votes)
+    fps_rows, fps_batch, fps_flag_off = phase_fps(
+        data["point_clouds"][..., :3].contiguous(), votes)
     done("fps")
     cbn_rows = phase_cbn(model, dev)
     torch.cuda.empty_cache()
@@ -2276,6 +2840,13 @@ def main() -> int:
                                                       modules["mlp_bf16"])
     torch.cuda.empty_cache()
     done("modules")
+    serve, serve_cbn = phase_serve(model, cfg, dev)
+    for name, counts in serve.items():
+        launches[f"serve_{name}"] = counts
+    torch.cuda.empty_cache()
+    done("serve")
+    launches["point_shard_bucketed"] = phase_point_shard(model, data)
+    done("point_shard")
     launches["demo"] = phase_demo()
     launches["detection"] = phase_detection(dev)
     done("demo_detection")
@@ -2286,13 +2857,15 @@ def main() -> int:
     for route, counts in loader_launches.items():
         launches[f"train_{route}_workers"] = counts
     test_cbn["train_val_t2048"] = train_cbn
+    test_cbn["serve_b8"] = serve_cbn
     done("train")
+    launches["ddp_train"], launches["ddp_val"] = phase_ddp(dev)
+    done("ddp")
     emit(phase="timing", seconds=seconds, total_s=sum(seconds.values()))
 
-    print(json.dumps({"kernels": kernel_summary(fps_rows, fps_batch, cbn_rows,
-                                                launches, test_cbn,
-                                                mise_cbn)}),
-          flush=True)
+    print(json.dumps({"kernels": kernel_summary(
+        fps_rows, fps_batch, fps_flag_off, cbn_rows, launches, test_cbn,
+        mise_cbn)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

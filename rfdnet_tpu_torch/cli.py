@@ -6,7 +6,11 @@ seeding, then mode dispatch. It runs on the current CUDA card unless
 `--device` names another device. `--mode train` trains one stage
 (`train.loop.train`: Adam steps with the plateau LR and BN-momentum
 schedules, freezing, a val pass each epoch) in a new run directory
-`<log.path>/<ISO time>/`, which receives `model_best` and `model_last`.
+`<log.path>/<ISO time>/`, which receives `model_best` and `model_last`;
+with more than one visible card and no `--device`, it runs data
+parallel over `train.loop.pick_world` of them, one process a card under
+NCCL (`run_train_ranks`), as the JAX CLI's `pick_mesh` spreads a step
+over `jax.devices()`.
 `--mode test` evaluates the val split (`Tester`: mAP/AR per IoU threshold
 and per-class voxel IoU, printed as a table; the per-scene dumps under
 `out/test/visualization` with `generation.dump_results`). `--profile DIR`
@@ -19,6 +23,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
+
+import torch
 
 from . import resolve_device
 from .config import build_model, load_config
@@ -40,9 +46,10 @@ def restore_weights(cfg: dict, model, log=print):
     return model
 
 
-def _build_loaders(cfg: dict, modes):
+def _build_loaders(cfg: dict, modes, group=None):
     """{mode: DataLoader} over `<data.split>/scannetv2_<split>.json`, the
-    dataset as the mode's section and `data` describe it."""
+    dataset as the mode's section and `data` describe it; with a data
+    `group`, each loader reads its rank's rows of each batch."""
     from .data.scannet import DataLoader, ScanNetDataset
 
     d = cfg["data"]
@@ -76,6 +83,7 @@ def _build_loaders(cfg: dict, modes):
             # host processes assembled no more items a second and waited
             # longer a train step (PERF.md, "Loader")
             worker_type=cfg["device"].get("worker_type", "thread"),
+            shard=(group.rank, group.world) if group is not None else (0, 1),
         )
     return loaders
 
@@ -123,26 +131,62 @@ def run_test(cfg: dict, device=None, log=print, overlap: bool = True):
     return metrics, tester
 
 
-def run_train(cfg: dict, device=None):
+def run_train(cfg: dict, device=None, group=None):
     """Train one stage on `device` (the current CUDA card when None): the
     model initialised from `seed` with the JAX package's distributions,
     then resumed or finetuned as the config says, in a new run directory.
-    Returns the `train.loop.Trainer`."""
+    With no `device` and more than one visible card, `run_train_ranks`
+    over `pick_world` of them, which returns each rank's `rank_summary`.
+    With a data `group` (a rank of that run), this rank's part; rank 0
+    alone makes the run directory and writes to it. Returns the
+    `train.loop.Trainer`."""
     from .train.checkpoint import CheckpointIO
-    from .train.loop import train
+    from .train.loop import pick_world, train
 
+    if device is None and group is None and torch.cuda.device_count() > 1:
+        world = pick_world(cfg["train"]["batch_size"],
+                           torch.cuda.device_count())
+        if world > 1:
+            return run_train_ranks(cfg, world, "nccl")
     dev = resolve_device(device)
-    save_path, log = make_run_dir(cfg)
-    loaders = _build_loaders(cfg, ["train", "val"])
+    lead = group is None or group.rank == 0
+    save_path, log = make_run_dir(cfg) if lead else (None, lambda msg: None)
+    loaders = _build_loaders(cfg, ["train", "val"], group)
     model = init_seeded(build_model(cfg, device=dev, mode="train"),
                         cfg.get("seed", 10), noise=0.0)
-    board = LogBoard(save_path)
+    board = LogBoard(save_path) if lead else None
     try:
         return train(cfg, model, loaders["train"], loaders["val"],
-                     checkpoint=CheckpointIO(save_path, log=log),
-                     board=board, log=log)
+                     checkpoint=CheckpointIO(save_path, log=log)
+                     if lead else None,
+                     board=board, log=log, group=group)
     finally:
-        board.close()
+        if board is not None:
+            board.close()
+
+
+def rank_summary(group, cfg: dict) -> dict:
+    """`run_train` on one rank of `group` (on its device); what the
+    process hands back: the run directory (rank 0's), the step times and
+    a digest of the final parameters' bytes (equal on every rank)."""
+    import hashlib
+
+    initiate_environment(cfg.get("seed", 10))
+    trainer = run_train(cfg, device=group.device, group=group)
+    digest = hashlib.sha1()
+    for p in trainer.model.parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    return dict(rank=group.rank, save_path=trainer.save_path,
+                step_times=trainer.step_times, digest=digest.hexdigest())
+
+
+def run_train_ranks(cfg: dict, world: int, backend: str = "nccl") -> list:
+    """`run_train` data parallel over `world` ranks, one process each
+    (`parallel.mesh.run_ranks`: NCCL with rank r on card r, or gloo on
+    the CPU). Returns each rank's `rank_summary`."""
+    from .parallel.mesh import run_ranks
+
+    return run_ranks(rank_summary, world, backend, cfg)
 
 
 def parse_args(argv=None):

@@ -2,8 +2,10 @@
 //
 // Replaces the Pallas TPU kernel `_fps_kernel` / `_fps_pallas` of
 // rfdnet_tpu/ops/fps.py (:61-133), with its exact semantics: index 0
-// first; points with |p|^2 <= 1e-3 never selected; running min-distance
-// starts at 1e10; each step takes the argmax, ties to the LOWEST index.
+// first; with `skip` (the JAX package's `skip_near_origin`, on by
+// default) points with |p|^2 <= 1e-3 are never selected, without it
+// every point is a candidate; running min-distance starts at 1e10; each
+// step takes the argmax, ties to the LOWEST index.
 //
 // What bounds it on this card: the loop. Each of the npoint-1 steps
 // depends on the previous step's choice, so a scene is a chain of
@@ -59,6 +61,10 @@
 // operations as the plain torch version, so near-ties resolve alike.
 // Non-candidates get min distance -1, which no distance (>= 0) lowers, so
 // the stored min distance is the reference's `where(cand, mind, -1)`.
+// `skip` is a kernel argument read once, where each point's min distance
+// starts (1e10, or -1 for a non-candidate), before the step loop: the
+// steps are the same instructions either way, and one instantiation
+// serves both settings.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -176,7 +182,7 @@ __host__ __device__ constexpr int log2_of(int v) {
 template <int T, int PPT, bool kCluster, bool kStub>
 __global__ void __launch_bounds__(T, 1)
 fps_resident(const float* __restrict__ xyz, int* __restrict__ out_g, int n,
-             int npoint, int cshift) {
+             int npoint, int cshift, int skip) {
   constexpr int W = T / 32;
   constexpr int kTShift = log2_of(T);
   static_assert((1 << kTShift) == T, "T must be a power of two");
@@ -206,7 +212,7 @@ fps_resident(const float* __restrict__ xyz, int* __restrict__ out_g, int n,
       x = __ldg(pts + 3 * i);
       y = __ldg(pts + 3 * i + 1);
       z = __ldg(pts + 3 * i + 2);
-      m = dist2(x, y, z, 0.f, 0.f, 0.f) > 1e-3f ? 1e10f : -1.0f;
+      m = !skip || dist2(x, y, z, 0.f, 0.f, 0.f) > 1e-3f ? 1e10f : -1.0f;
     }
     px[k] = x, py[k] = y, pz[k] = z, md[k] = m;
     s_x[k * T + tid] = x, s_y[k * T + tid] = y, s_z[k * T + tid] = z;
@@ -333,14 +339,15 @@ cudaLaunchConfig_t resident_config(int b, int cshift, cudaStream_t stream,
 
 template <int T, int PPT, bool kCluster, bool kStub>
 cudaError_t launch_resident(const float* xyz, int* out, int b, int n,
-                            int npoint, int cshift, cudaStream_t stream) {
+                            int npoint, int cshift, int skip,
+                            cudaStream_t stream) {
   cudaError_t err = prepare_resident<T, PPT, kCluster, kStub>();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg =
       resident_config<T, PPT, kCluster>(b, cshift, stream, attr);
   return cudaLaunchKernelEx(&cfg, fps_resident<T, PPT, kCluster, kStub>,
-                            xyz, out, n, npoint, cshift);
+                            xyz, out, n, npoint, cshift, skip);
 }
 
 // How many clusters (CTAs without one) of the launch of b scenes the
@@ -401,7 +408,7 @@ __device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
 
 __global__ void __launch_bounds__(kStreamThreads)
 fps_streaming(const float* __restrict__ xyz, float* __restrict__ mind_g,
-              int* __restrict__ out_g, int n, int npoint) {
+              int* __restrict__ out_g, int n, int npoint, int skip) {
   const float* pts = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
   float* mind = mind_g + static_cast<size_t>(blockIdx.x) * n;
   int* out = out_g + static_cast<size_t>(blockIdx.x) * npoint;
@@ -414,7 +421,8 @@ fps_streaming(const float* __restrict__ xyz, float* __restrict__ mind_g,
   for (int i = tid; i < n; i += kStreamThreads) {
     const float x = __ldg(pts + 3 * i), y = __ldg(pts + 3 * i + 1),
                 z = __ldg(pts + 3 * i + 2);
-    mind[i] = dist2(x, y, z, 0.f, 0.f, 0.f) > 1e-3f ? 1e10f : -1.0f;
+    mind[i] = !skip || dist2(x, y, z, 0.f, 0.f, 0.f) > 1e-3f ? 1e10f
+                                                             : -1.0f;
   }
   if (tid == 0) {
     out[0] = 0;
@@ -475,11 +483,12 @@ fps_streaming(const float* __restrict__ xyz, float* __restrict__ mind_g,
 // (cluster > 1, threads, ppt, stub) one of FPS_RESIDENT_SHAPES. With `stub`
 // != 0 (ppt 1, any n) each step does its reductions, barriers and exchange
 // and no point work: for timing the latency of a step, the indices mean
-// nothing. Launches on `stream` and returns the first CUDA error.
+// nothing. `skip` != 0 leaves points with |p|^2 <= 1e-3 out of the
+// candidates. Launches on `stream` and returns the first CUDA error.
 extern "C" int rfd_fps_resident_launch(const float* xyz, int* out, int b,
                                        int n, int npoint, int cluster,
                                        int threads, int ppt, int stub,
-                                       cudaStream_t stream) {
+                                       int skip, cudaStream_t stream) {
   if (b <= 0 || n <= 0 || npoint <= 0) return static_cast<int>(cudaErrorInvalidValue);
   int cshift = 0;
   while ((1 << cshift) < cluster) ++cshift;
@@ -490,7 +499,7 @@ extern "C" int rfd_fps_resident_launch(const float* xyz, int* out, int b,
 #define FPS_DISPATCH(C, T, P, S)                                            \
   if ((cluster > 1) == C && threads == T && ppt == P && (stub != 0) == S)   \
     return static_cast<int>(launch_resident<T, P, C, S>(                    \
-        xyz, out, b, n, npoint, cshift, stream));
+        xyz, out, b, n, npoint, cshift, skip, stream));
   FPS_RESIDENT_SHAPES(FPS_DISPATCH)
   FPS_EXTRA_SHAPES(FPS_DISPATCH)
 #undef FPS_DISPATCH
@@ -516,12 +525,13 @@ extern "C" int rfd_fps_active_clusters(int b, int cluster, int threads,
 }
 
 // The streaming kernel. xyz (B, N, 3) f32 contiguous; mind (B, N) f32
-// scratch; out (B, npoint) int32. Launches on `stream` and returns
-// cudaGetLastError().
+// scratch; out (B, npoint) int32; `skip` as for the resident kernel.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int rfd_fps_streaming_launch(const float* xyz, float* mind,
                                         int* out, int b, int n, int npoint,
-                                        cudaStream_t stream) {
+                                        int skip, cudaStream_t stream) {
   if (b <= 0 || n <= 0 || npoint <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  fps_streaming<<<b, kStreamThreads, 0, stream>>>(xyz, mind, out, n, npoint);
+  fps_streaming<<<b, kStreamThreads, 0, stream>>>(xyz, mind, out, n, npoint,
+                                                  skip);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,6 +33,7 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 import numpy as np
 
 from ..config import MEAN_SIZE_ARR, SHAPENETID2CLASS, angle2class
+from ..collectives import shard_rows
 from .binvox import read_binvox
 from .transforms import random_sampling, rotz, subsample_points
 
@@ -366,12 +367,17 @@ class DataLoader:
     workers fork from it. The pool starts at the loader's first pass and
     serves the next ones, the dataset as it was pickled then, at the epoch
     of each request; `close()` stops it, and so does the loader's
-    collection."""
+    collection.
+
+    shard (rank, world): the loader of one rank of a data-parallel run
+    reads and yields only that rank's rows of each global batch of
+    `batch_size` (`collectives.shard_rows`), in the same order; the
+    batches and their count stay the global ones'."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 8,
                  seed: int = 0, prefetch: int = 2,
-                 worker_type: str = "auto"):
+                 worker_type: str = "auto", shard: tuple = (0, 1)):
         if worker_type not in ("auto", "process", "thread"):
             raise ValueError(f"worker_type {worker_type!r}: 'auto', "
                              "'process' or 'thread'")
@@ -386,6 +392,7 @@ class DataLoader:
             worker_type = ("process" if self.num_workers > 1
                            and (os.cpu_count() or 1) > 1 else "thread")
         self.worker_type = worker_type
+        self.shard = tuple(shard)
         self._epoch = 0
         self._pool = None
 
@@ -413,6 +420,10 @@ class DataLoader:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
+    def batch_rows(self, i: int) -> int:
+        """The rows of global batch i, all ranks together."""
+        return min(self.batch_size, len(self.dataset) - i * self.batch_size)
+
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
         if hasattr(self.dataset, "set_epoch"):
@@ -426,6 +437,12 @@ class DataLoader:
             ).shuffle(order)
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(len(self))]
+        rank, world = self.shard
+        if world > 1:
+            if any(len(b) < world for b in batches):
+                raise ValueError(f"a batch of {min(map(len, batches))} rows "
+                                 f"cannot give each of {world} ranks one")
+            batches = [b[shard_rows(len(b), rank, world)] for b in batches]
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         if self.worker_type == "process" and self.num_workers > 1:

@@ -21,6 +21,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..collectives import all_sum
+
 
 class Dense(nn.Linear):
     """Linear layer; `zero_init` marks the layers the JAX package
@@ -55,21 +57,32 @@ def set_compute_dtype(module: nn.Module, dtype) -> None:
 
 
 def batch_statistics(x: torch.Tensor, running_mean: torch.Tensor,
-                     running_var: torch.Tensor, momentum: float):
+                     running_var: torch.Tensor, momentum: float,
+                     group=None):
     """Train-mode statistics of x (..., C) over every leading axis, in f32
     (f64 for f64 input), as the JAX package computes them: the mean and the
     mean of squares, var = max(mean_sq - mean^2, 0) (biased, for
     normalising). The running buffers are updated in place with the
     unbiased var * n / (n - 1), as new = (1 - m) * old + m * batch.
-    Returns (mean, var)."""
+    Returns (mean, var).
+
+    `group` (a `collectives.DataGroup`, or None): the statistics of the
+    global batch (sync-BN, the JAX package's batch norm under its data
+    mesh). The sum, the sum of squares and the count go through one
+    vector (f32, f64 for f64 input) summed over the ranks inside autograd (`collectives.all_sum`,
+    the vector itself without a group; counts exact below 2^24), then
+    mean = sum / n and mean_sq = sumsq / n, n the global count."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     dims = tuple(range(x.dim() - 1))
-    mean = xf.mean(dim=dims)
-    mean_sq = torch.square(xf).mean(dim=dims)
+    C = x.shape[-1]
+    sums = all_sum(torch.cat([
+        xf.sum(dim=dims), torch.square(xf).sum(dim=dims),
+        xf.new_full((1,), float(x.numel() // C))]), group)
+    n = sums[-1]
+    mean, mean_sq = sums[:C] / n, sums[C:2 * C] / n
     var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
-    n = x.numel() // x.shape[-1]
     with torch.no_grad():
-        unbiased = var * (n / max(n - 1, 1))
+        unbiased = var * (n / torch.clamp(n - 1, min=1))
         running_mean.copy_((1.0 - momentum) * running_mean + momentum * mean)
         running_var.copy_((1.0 - momentum) * running_var
                           + momentum * unbiased)
@@ -80,14 +93,16 @@ class BatchNorm(nn.Module):
     """Batch norm over the last axis, torch semantics (eps 1e-5), in the
     JAX package's operation order: (x - mean) * rsqrt(var + eps) * scale +
     bias. Train mode normalises with the batch's statistics
-    (`batch_statistics`) and updates the running ones with `momentum`;
-    eval mode uses the running ones."""
+    (`batch_statistics`, over `data_group`'s global batch when set, see
+    `set_data_group`) and updates the running ones with `momentum`; eval
+    mode uses the running ones."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.data_group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -96,11 +111,23 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         if self.training:
             mean, var = batch_statistics(x, self.running_mean,
-                                         self.running_var, self.momentum)
+                                         self.running_var, self.momentum,
+                                         self.data_group)
         else:
             mean, var = self.running_mean, self.running_var
         y = (x.float() - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+
+def set_data_group(model: nn.Module, group) -> None:
+    """Give every module of `model` that reduces over the batch (its
+    batch norms, and the modules whose losses take batch means) the data
+    group `group` (`collectives.DataGroup`; None: this process's batch
+    alone). Each reads its own `data_group`; the loss functions it calls
+    take it as their `group` argument."""
+    for m in model.modules():
+        if hasattr(m, "data_group"):
+            m.data_group = group
 
 
 def set_bn_momentum(model: nn.Module, momentum: float) -> None:

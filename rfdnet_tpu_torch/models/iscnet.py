@@ -12,6 +12,13 @@ mode goes through the fused CBN decoder (`ONet.decode_fused`, the CUDA
 kernel on the card); train mode decodes layer by layer, with batch
 statistics and autograd. Variable-size results (NMS survivors, completed
 proposals) stay fixed-shape with validity masks, as in the JAX package.
+
+`data_group` (None, or a `collectives.DataGroup` that
+`common.set_data_group` sets on the model, its skip propagation, its
+completion network and its batch norms): the batch this process holds
+is one rank's rows of a global batch, and the losses (the completion and
+mask losses of `forward` and `generate`, and `loss`) are the global
+batch's parts (`collectives.global_sum`).
 """
 
 from __future__ import annotations
@@ -109,6 +116,7 @@ class ISCNet(nn.Module):
         self.num_size_cluster = num_size_cluster
         self.completion_limit = completion_limit
         self.frozen = tuple(frozen)
+        self.data_group = None
         self.phase = phase
         self.skip_propagate = skip_propagate
         self.generate_limit = generate_limit
@@ -254,7 +262,8 @@ class ISCNet(nn.Module):
         weighted by `completion_weight` added to `total`."""
         end_points, completion_losses = out[:2]
         total = detection_loss(end_points, data, self.mean_size_arr,
-                               self.num_heading_bin, self.num_size_cluster)
+                               self.num_heading_bin, self.num_size_cluster,
+                               group=self.data_group)
         if self.phase == "completion":
             cl = onet_loss(completion_losses[0], completion_losses[1],
                            completion_weight)

@@ -42,20 +42,23 @@ class _AffinelessBatchNorm(nn.Module):
     """Batch norm without affine, folded to x * scale + shift with
     scale = rsqrt(var + eps) and shift = -mean * scale: the batch's
     statistics in train mode (updating the running ones with `momentum`,
-    see `common.batch_statistics`), the running ones in eval mode."""
+    see `common.batch_statistics`; the global batch's with a
+    `data_group`), the running ones in eval mode."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.data_group = None
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
         if self.training:
             mean, var = batch_statistics(x, self.running_mean,
-                                         self.running_var, self.momentum)
+                                         self.running_var, self.momentum,
+                                         self.data_group)
         else:
             mean, var = self.running_mean, self.running_var
         scale = torch.rsqrt(var + self.eps)

@@ -13,6 +13,15 @@ term weights 0.1 (heading class) and 0.1 (size class), total = (vote +
 w (completion + 100 mask). GT boxes are padded to MAX_NUM_OBJ with zeros,
 and the padded centers take part in the objectness assignment, as in the
 JAX package and the reference. `pointseg_loss` is in `pointseg.py`.
+
+Every mean is a numerator over a denominator (a sum or a count over the
+batch), and the denominator goes through `collectives.global_sum`. With
+a data group (the `group` argument, a `collectives.DataGroup`) the
+losses are those of the global batch, as the JAX package's sharded step
+computes them: each numerator stays this rank's and each denominator is
+summed over the ranks outside autograd. Every term is then a part whose sum
+over the ranks is the global term, and so is its gradient (the train
+step sums the gradients over the ranks).
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import math
 import torch
 
 from ..ops.nn_distance import huber_loss, nn_distance
+from ..collectives import global_sum
 
 FAR_THRESHOLD = 0.6
 NEAR_THRESHOLD = 0.3
@@ -49,7 +59,7 @@ def _take(values, index):
         *index.shape, *(1,) * (values.dim() - 2)).expand(shape))
 
 
-def compute_vote_loss(est, gt):
+def compute_vote_loss(est, gt, group=None):
     """Mean over the seeds on an object of the L1 distance from the seed's
     vote to the nearest of its three GT votes."""
     B, num_seed, _ = est["seed_xyz"].shape
@@ -64,10 +74,11 @@ def compute_vote_loss(est, gt):
     _, _, dist2, _ = nn_distance(vote_r, gt_r, l1=True)
     votes_dist = dist2.amin(dim=1).reshape(B, num_seed)
     mask = seed_gt_votes_mask.float()
-    return torch.sum(votes_dist * mask) / (torch.sum(mask) + 1e-6)
+    return torch.sum(votes_dist * mask) / (
+        global_sum(torch.sum(mask), group) + 1e-6)
 
 
-def compute_objectness_loss(est, gt):
+def compute_objectness_loss(est, gt, group=None):
     """Weighted CE of objectness against the label "nearest GT center
     within NEAR", over the proposals nearer than NEAR or farther than FAR.
     Returns (loss, objectness_label, objectness_mask, object_assignment)."""
@@ -80,27 +91,28 @@ def compute_objectness_loss(est, gt):
     loss = _cross_entropy(est["objectness_scores"], objectness_label,
                           OBJECTNESS_CLS_WEIGHTS)
     loss = torch.sum(loss * objectness_mask) / (
-        torch.sum(objectness_mask) + 1e-6)
+        global_sum(torch.sum(objectness_mask), group) + 1e-6)
     return loss, objectness_label, objectness_mask, ind1
 
 
 def compute_box_and_sem_cls_loss(est, gt, object_assignment,
                                  objectness_label, mean_size_arr,
-                                 num_heading_bin, num_size_cluster):
+                                 num_heading_bin, num_size_cluster,
+                                 group=None):
     """(center, heading class, heading residual, size class, size
     residual, semantic class) losses of the positive proposals against
     their assigned GT boxes; the center loss is the two-way chamfer of
     proposal and GT centers."""
     oa = object_assignment
     obj_w = objectness_label.float()
-    denom = torch.sum(obj_w) + 1e-6
+    denom = global_sum(torch.sum(obj_w), group) + 1e-6
 
     dist1, _, dist2, _ = nn_distance(est["center"],
                                      gt["center_label"][:, :, 0:3])
     box_mask = gt["box_label_mask"].float()
     center_loss = (torch.sum(dist1 * obj_w) / denom
-                   + torch.sum(dist2 * box_mask) / (torch.sum(box_mask)
-                                                    + 1e-6))
+                   + torch.sum(dist2 * box_mask) / (
+                       global_sum(torch.sum(box_mask), group) + 1e-6))
 
     heading_class_label = _take(gt["heading_class_label"], oa)
     heading_class_loss = torch.sum(_cross_entropy(
@@ -136,28 +148,36 @@ def compute_box_and_sem_cls_loss(est, gt, object_assignment,
             size_class_loss, size_reg_loss, sem_cls_loss)
 
 
-def detection_loss(est, gt, mean_size_arr, num_heading_bin: int = 12,
-                   num_size_cluster: int = 8) -> dict:
-    """The detection loss's terms as scalars, `total` the one to
-    differentiate."""
-    vote_loss = compute_vote_loss(est, gt)
-    objectness_loss, objectness_label, objectness_mask, object_assignment = (
-        compute_objectness_loss(est, gt))
-    total_num_proposal = objectness_label.shape[0] * objectness_label.shape[1]
+def _objectness_summary(est, objectness_label, objectness_mask, group):
+    """(pos_ratio, neg_ratio, obj_acc) over the proposals."""
+    total_num_proposal = global_sum(
+        objectness_label.shape[0] * objectness_label.shape[1], group)
     pos_ratio = torch.sum(objectness_label.float()) / total_num_proposal
     neg_ratio = torch.sum(objectness_mask) / total_num_proposal - pos_ratio
+    obj_pred = est["objectness_scores"].argmax(dim=2)
+    obj_acc = torch.sum((obj_pred == objectness_label).float()
+                        * objectness_mask) / (
+        global_sum(torch.sum(objectness_mask), group) + 1e-6)
+    return pos_ratio, neg_ratio, obj_acc
+
+
+def detection_loss(est, gt, mean_size_arr, num_heading_bin: int = 12,
+                   num_size_cluster: int = 8, group=None) -> dict:
+    """The detection loss's terms as scalars, `total` the one to
+    differentiate."""
+    vote_loss = compute_vote_loss(est, gt, group)
+    objectness_loss, objectness_label, objectness_mask, object_assignment = (
+        compute_objectness_loss(est, gt, group))
+    pos_ratio, neg_ratio, obj_acc = _objectness_summary(
+        est, objectness_label, objectness_mask, group)
     (center_loss, heading_cls_loss, heading_reg_loss, size_cls_loss,
      size_reg_loss, sem_cls_loss) = compute_box_and_sem_cls_loss(
         est, gt, object_assignment, objectness_label, mean_size_arr,
-        num_heading_bin, num_size_cluster)
+        num_heading_bin, num_size_cluster, group)
     box_loss = (center_loss + 0.1 * heading_cls_loss + heading_reg_loss
                 + 0.1 * size_cls_loss + size_reg_loss)
     loss = (vote_loss + 0.5 * objectness_loss + box_loss
             + 0.1 * sem_cls_loss) * 10.0
-    obj_pred = est["objectness_scores"].argmax(dim=2)
-    obj_acc = torch.sum((obj_pred == objectness_label).float()
-                        * objectness_mask) / (torch.sum(objectness_mask)
-                                              + 1e-6)
     return {
         "total": loss,
         "vote_loss": vote_loss,
@@ -175,7 +195,7 @@ def detection_loss(est, gt, mean_size_arr, num_heading_bin: int = 12,
     }
 
 
-def compute_objectness_loss_boxnet(est, gt):
+def compute_objectness_loss_boxnet(est, gt, group=None):
     """BoxNet's objectness: each proposal's label is its seed's GT vote
     mask (gathered through `seed_inds`, then `aggregated_vote_inds`), every
     proposal counts (no NEAR/FAR zone). Returns (loss, objectness_label,
@@ -189,29 +209,24 @@ def compute_objectness_loss_boxnet(est, gt):
     loss = _cross_entropy(est["objectness_scores"], objectness_label,
                           OBJECTNESS_CLS_WEIGHTS)
     loss = torch.sum(loss * objectness_mask) / (
-        torch.sum(objectness_mask) + 1e-6)
+        global_sum(torch.sum(objectness_mask), group) + 1e-6)
     return loss, objectness_label, objectness_mask, ind1
 
 
 def boxnet_detection_loss(est, gt, mean_size_arr, num_heading_bin: int = 12,
-                          num_size_cluster: int = 8) -> dict:
+                          num_size_cluster: int = 8, group=None) -> dict:
     """`detection_loss` with BoxNet's objectness and no vote loss."""
     objectness_loss, objectness_label, objectness_mask, object_assignment = (
-        compute_objectness_loss_boxnet(est, gt))
-    total_num_proposal = objectness_label.shape[0] * objectness_label.shape[1]
-    pos_ratio = torch.sum(objectness_label.float()) / total_num_proposal
-    neg_ratio = torch.sum(objectness_mask) / total_num_proposal - pos_ratio
+        compute_objectness_loss_boxnet(est, gt, group))
+    pos_ratio, neg_ratio, obj_acc = _objectness_summary(
+        est, objectness_label, objectness_mask, group)
     (center_loss, heading_cls_loss, heading_reg_loss, size_cls_loss,
      size_reg_loss, sem_cls_loss) = compute_box_and_sem_cls_loss(
         est, gt, object_assignment, objectness_label, mean_size_arr,
-        num_heading_bin, num_size_cluster)
+        num_heading_bin, num_size_cluster, group)
     box_loss = (center_loss + 0.1 * heading_cls_loss + heading_reg_loss
                 + 0.1 * size_cls_loss + size_reg_loss)
     loss = (0.5 * objectness_loss + box_loss + 0.1 * sem_cls_loss) * 10.0
-    obj_pred = est["objectness_scores"].argmax(dim=2)
-    obj_acc = torch.sum((obj_pred == objectness_label).float()
-                        * objectness_mask) / (torch.sum(objectness_mask)
-                                              + 1e-6)
     return {
         "total": loss,
         "objectness_loss": objectness_loss,
@@ -237,8 +252,9 @@ def onet_loss(completion_loss, mask_loss, weight: float = 1.0) -> dict:
     }
 
 
-def chamfer_loss(set1, set2, weight: float = 1.0):
+def chamfer_loss(set1, set2, weight: float = 1.0, group=None):
     """weight x (mean squared distance of each point of set1 (B, N, 3) to
     its nearest in set2 (B, M, 3) + the same from set2 to set1)."""
     d1, _, d2, _ = nn_distance(set1.float(), set2.float())
-    return weight * (d1.mean() + d2.mean())
+    return weight * (d1.sum() / global_sum(d1.numel(), group)
+                     + d2.sum() / global_sum(d2.numel(), group))

@@ -17,6 +17,7 @@ from torch import nn
 
 from ..ops import fold_cbn_constants, fused_cbn_decode
 from .layers import DecoderCBatchNorm, EncoderLatent
+from ..collectives import global_sum
 
 
 def make_3d_grid(bb_min, bb_max, shape, device=None) -> torch.Tensor:
@@ -37,6 +38,7 @@ class ONet(nn.Module):
         self.threshold = threshold
         self.use_cls_for_completion = use_cls_for_completion
         self.mxu_dtype = torch.bfloat16 if decoder_bf16 else torch.float32
+        self.data_group = None  # see `common.set_data_group`
         cond_dim = c_dim + num_class * use_cls_for_completion
         self.decoder = DecoderCBatchNorm(c_dim=cond_dim, z_dim=z_dim)
         # registered after the decoder, so that `weights.init_seeded` draws
@@ -86,7 +88,8 @@ class ONet(nn.Module):
 
         Train mode (`self.training`): z = mean + std * eps, eps (Nb, z_dim)
         given or drawn from `generator`, decoded by `decode`. Eval mode: z
-        is the posterior mean, decoded by `decode_fused`.
+        is the posterior mean, decoded by `decode_fused`. With a `data_group`, the
+        mean over the global batch's objects (`collectives.global_sum`).
 
         input_features (Nb, c_dim), input_points (Nb, T, 3),
         input_points_occ (Nb, T), cls_codes (Nb, num_class) ->
@@ -111,9 +114,11 @@ class ONet(nn.Module):
         per_obj = kl + torch.sum(bce, dim=-1)
         if valid_mask is not None:
             w = valid_mask.float()
-            loss = torch.sum(per_obj * w) / torch.clamp(torch.sum(w), min=1e-6)
+            loss = torch.sum(per_obj * w) / torch.clamp(
+                global_sum(torch.sum(w), self.data_group), min=1e-6)
         else:
-            loss = torch.mean(per_obj)
+            loss = torch.sum(per_obj) / global_sum(per_obj.numel(),
+                                                   self.data_group)
 
         voxels = None
         if export_shape:

@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from .common import BatchNorm, Dense, max_pool_points
+from ..collectives import global_sum
 
 
 class _STN(nn.Module):
@@ -95,30 +96,32 @@ class PointSeg(nn.Module):
         return torch.log_softmax(self.conv4(h), dim=-1), trans_feat
 
 
-def feature_transform_regularizer(trans, weights=None):
+def _mean(x, weights=None, group=None):
+    """The mean of x (weighted by `weights` when given), over the global
+    batch of `group` when given (`collectives.global_sum`)."""
+    if weights is None:
+        return torch.sum(x) / global_sum(x.numel(), group)
+    return torch.sum(x * weights) / torch.clamp(
+        global_sum(torch.sum(weights), group), min=1e-6)
+
+
+def feature_transform_regularizer(trans, weights=None, group=None):
     """The orthogonality penalty of the feature transform, as the reference
     computes it: bmm(A, A^T - I) (the -I before the product), its
     Frobenius norm per item, then the mean over the batch (weighted by
     `weights` (B,) when given)."""
     eye = torch.eye(trans.shape[1], dtype=trans.dtype, device=trans.device)
     prod = torch.bmm(trans, trans.transpose(1, 2) - eye)
-    norms = torch.linalg.matrix_norm(prod)
-    if weights is None:
-        return norms.mean()
-    return torch.sum(norms * weights) / torch.clamp(torch.sum(weights),
-                                                    min=1e-6)
+    return _mean(torch.linalg.matrix_norm(prod), weights, group)
 
 
 def pointseg_loss(log_probs, target, trans_feat, mat_diff_loss_scale=0.001,
-                  sample_weights=None, trans_weights=None):
+                  sample_weights=None, trans_weights=None, group=None):
     """NLL + 0.001 x orthogonality penalty. log_probs (M, C), target (M,)
     integer -> scalar. sample_weights (M,) / trans_weights (B,): weighted
-    means that leave out padded proposal slots."""
+    means that leave out padded proposal slots. `group`: the global
+    batch's means (`collectives.global_sum`)."""
     per = -torch.gather(log_probs, 1, target[:, None].long())[:, 0]
-    if sample_weights is None:
-        nll = per.mean()
-    else:
-        nll = torch.sum(per * sample_weights) / torch.clamp(
-            torch.sum(sample_weights), min=1e-6)
-    reg = feature_transform_regularizer(trans_feat, trans_weights)
+    nll = _mean(per, sample_weights, group)
+    reg = feature_transform_regularizer(trans_feat, trans_weights, group)
     return nll + reg * mat_diff_loss_scale

@@ -30,6 +30,7 @@ class SkipPropagation(nn.Module):
         self.encoder = ResnetPointnet(
             3 + input_feature_dim + box_feature_dim, c_dim, hidden_dim)
         self.point_seg = PointSeg(num_class=2, channel=3 + input_feature_dim)
+        self.data_group = None  # see `common.set_data_group`
 
     def _run(self, box_xyz, box_orientations, box_feature,
              input_point_cloud, point_instance_labels=None,
@@ -39,7 +40,8 @@ class SkipPropagation(nn.Module):
         box_xyz (B, P, 3), box_orientations (B, P), box_feature
         (B, P, 128), input_point_cloud (B, N, 3+F), point_instance_labels
         (B, N) or None, proposal_instance_labels (B, P); slot_mask (B, P)
-        leaves padded slots out of the mask loss."""
+        leaves padded slots out of the mask loss; with a `data_group`,
+        the mask loss of the global batch."""
         xyz = input_point_cloud[..., 0:3]
         feat = input_point_cloud[..., 3:3 + self.input_feature_dim]
         # the instance-label channel, zeros without labels
@@ -65,7 +67,7 @@ class SkipPropagation(nn.Module):
                 weights = dict(sample_weights=w.repeat_interleave(S),
                                trans_weights=w)
             mask_loss = pointseg_loss(seg_flat, target.long(), trans_feat,
-                                      **weights)
+                                      group=self.data_group, **weights)
         box_feat = box_feature.reshape(B * P, 1, -1).expand(
             -1, S, box_feature.shape[-1])
         input_features = torch.cat([input_features, box_feat], dim=-1)

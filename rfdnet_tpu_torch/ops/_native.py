@@ -127,7 +127,9 @@ def build(names=KERNELS + HOST_LIBS) -> dict[str, str]:
 
 def ptxas_summary(log: str) -> list[dict]:
     """One entry per kernel of an `nvcc -Xptxas -v` log: its (mangled)
-    name, registers a thread, and bytes of spill stores and loads."""
+    name, registers a thread, bytes of spill stores and loads, and bytes
+    of static shared memory (`smem`; dynamic shared memory is the
+    launch's, which ptxas does not see)."""
     rows, name, spill = [], None, None
     for line in log.splitlines():
         if "Function properties for" in line:
@@ -136,7 +138,9 @@ def ptxas_summary(log: str) -> list[dict]:
             spill = [int(v) for v in re.findall(r"(\d+) bytes spill", line)]
         elif name and "Used" in line:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
-            rows.append(dict(kernel=name, registers=regs, spill=spill))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append(dict(kernel=name, registers=regs, spill=spill,
+                             smem=int(smem.group(1)) if smem else 0))
             name = None
     return rows
 

@@ -20,31 +20,53 @@ import torch
 _MAX_CHUNK_ELEMS = 16 * 1024 * 1024
 
 
-def _ball_query_single(xyz: torch.Tensor, new_xyz: torch.Tensor,
-                       radius: float, nsample: int) -> torch.Tensor:
-    """xyz (N, 3), new_xyz (M, 3) -> (M, nsample) int64."""
+def center_chunks(n_points: int, n_centers: int) -> int:
+    """Centers a chunk when each holds a row of n_points distances."""
+    return max(1, min(n_centers, _MAX_CHUNK_ELEMS // max(n_points, 1)))
+
+
+def in_radius(xyz: torch.Tensor, p2: torch.Tensor, centers: torch.Tensor,
+              radius: float) -> torch.Tensor:
+    """(C, N) bool: squared distance < radius^2, as the quadratic form
+    |c|^2 + |p|^2 - 2 c.p; xyz (N, 3) with p2 = |p|^2 (N,), centers
+    (C, 3)."""
+    c2 = (centers * centers).sum(-1)
+    d2 = c2[:, None] + p2[None, :] - 2.0 * (centers @ xyz.T)
+    return d2 < radius * radius
+
+
+def first_hits(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
+               nsample: int):
+    """xyz (N, 3), new_xyz (M, 3) -> (idx (M, nsample) int64, count (M,)
+    int32): each center's first min(count, nsample) in-radius indices in
+    index order in idx's leading slots (zeros after them), and its count
+    of points in radius."""
     N, M = xyz.shape[0], new_xyz.shape[0]
     p2 = (xyz * xyz).sum(-1)
     cols = torch.arange(N, device=xyz.device)
-    slots = torch.arange(nsample, device=xyz.device)
-    chunk = max(1, min(M, _MAX_CHUNK_ELEMS // max(N, 1)))
-    out = []
+    chunk = center_chunks(N, M)
+    idxs, counts = [], []
     for c0 in range(0, M, chunk):
         centers = new_xyz[c0:c0 + chunk]
         C = centers.shape[0]
-        c2 = (centers * centers).sum(-1)
-        d2 = c2[:, None] + p2[None, :] - 2.0 * (centers @ xyz.T)
-        mask = d2 < radius * radius
+        mask = in_radius(xyz, p2, centers, radius)
         rank = mask.cumsum(dim=1, dtype=torch.int32)  # 1-based at each hit
         # hit k (k < nsample) goes to slot k; the rest to a dump column
         target = torch.where(mask & (rank <= nsample), rank - 1, nsample)
         idx = torch.zeros((C, nsample + 1), dtype=torch.int64,
                           device=xyz.device)
         idx.scatter_(1, target.long(), cols.expand(C, N))
-        idx = idx[:, :nsample]
-        count = rank[:, -1:]
-        out.append(torch.where(slots[None, :] < count, idx, idx[:, :1]))
-    return torch.cat(out, dim=0)
+        idxs.append(idx[:, :nsample])
+        counts.append(rank[:, -1])
+    return torch.cat(idxs, dim=0), torch.cat(counts, dim=0)
+
+
+def _ball_query_single(xyz: torch.Tensor, new_xyz: torch.Tensor,
+                       radius: float, nsample: int) -> torch.Tensor:
+    """xyz (N, 3), new_xyz (M, 3) -> (M, nsample) int64."""
+    idx, count = first_hits(xyz, new_xyz, radius, nsample)
+    slots = torch.arange(nsample, device=xyz.device)
+    return torch.where(slots[None, :] < count[:, None], idx, idx[:, :1])
 
 
 def ball_query(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,

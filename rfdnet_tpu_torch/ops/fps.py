@@ -6,7 +6,9 @@ hand-written kernel of `csrc/fps.cu` (the port of the Pallas kernel
 torch version of `_fps_xla`'s loop. Both share the JAX package's
 semantics exactly:
 - the first selected index is 0;
-- points with ||p||^2 <= 1e-3 are never candidates;
+- with `skip_near_origin` (the default, the reference kernel's
+  exclusion) points with ||p||^2 <= 1e-3 are never candidates; without
+  it every point is;
 - the running min-distance starts at 1e10;
 - each step takes the argmax of the min-distance, ties to the LOWEST index.
 
@@ -102,12 +104,14 @@ def fps_route(n: int, b: int = 1) -> FpsRoute:
     return STREAMING_ROUTE
 
 
-def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+def fps_plain(xyz: torch.Tensor, npoint: int,
+              skip_near_origin: bool = True) -> torch.Tensor:
     """The plain torch version of the kernel, on any device."""
     B, N, _ = xyz.shape
     xyz = xyz.float()
     x, y, z = xyz.unbind(-1)
-    cand = (x * x + y * y + z * z) > 1e-3
+    cand = ((x * x + y * y + z * z) > 1e-3 if skip_near_origin
+            else torch.ones_like(x, dtype=torch.bool))
     mind = torch.full((B, N), 1e10, dtype=torch.float32, device=xyz.device)
     out = torch.zeros((B, npoint), dtype=torch.int32, device=xyz.device)
     rows = torch.arange(B, device=xyz.device)
@@ -126,14 +130,16 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 
 def launch_route(xyz: torch.Tensor, npoint: int, route: FpsRoute,
-                 stub: bool = False, lib=None) -> torch.Tensor:
+                 stub: bool = False, lib=None,
+                 skip_near_origin: bool = True) -> torch.Tensor:
     """Launch the kernel of `route` on a CUDA tensor, whatever `fps_route`
     would choose: for `_fps_cuda`, and for measuring one route against
     another. With `stub` (resident routes; `ppt` must be 1) the steps do
     their reductions, barriers and exchange and no point work: the time
     over the steps is the latency of one dependent step on that (cluster,
     threads), and the indices returned mean nothing. `lib` is another
-    build of `csrc/fps.cu` to launch from (one with more launch shapes)."""
+    build of `csrc/fps.cu` to launch from (one with more launch shapes).
+    `skip_near_origin` is passed to the kernel as an argument."""
     B, N = xyz.shape[0], xyz.shape[1]
     _native.check_tensor(xyz, "xyz", torch.float32, (B, N, 3), xyz.device)
     if npoint < 1 or N < 1:
@@ -145,20 +151,21 @@ def launch_route(xyz: torch.Tensor, npoint: int, route: FpsRoute,
     with torch.cuda.device(xyz.device):
         if route.kind == "resident":
             fn = lib.rfd_fps_resident_launch
-            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             err = fn(_native.ptr(xyz), _native.ptr(out), B, N, npoint,
                      route.cluster, route.threads, route.ppt, int(stub),
-                     _native.stream(xyz.device))
+                     int(skip_near_origin), _native.stream(xyz.device))
         else:
             fn = lib.rfd_fps_streaming_launch
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             mind = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
             err = fn(_native.ptr(xyz), _native.ptr(mind), _native.ptr(out),
-                     B, N, npoint, _native.stream(xyz.device))
+                     B, N, npoint, int(skip_near_origin),
+                     _native.stream(xyz.device))
     _native.check_launch(err, f"fps {route}")
     return out
 
@@ -180,20 +187,25 @@ def active_clusters(route: FpsRoute, b: int, lib=None) -> int:
     return count.value
 
 
-def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    out = launch_route(xyz, npoint, fps_route(xyz.shape[1], xyz.shape[0]))
+def _fps_cuda(xyz: torch.Tensor, npoint: int,
+              skip_near_origin: bool = True) -> torch.Tensor:
+    out = launch_route(xyz, npoint, fps_route(xyz.shape[1], xyz.shape[0]),
+                       skip_near_origin=skip_near_origin)
     furthest_point_sample.launches += 1
     return out
 
 
-def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+def furthest_point_sample(xyz: torch.Tensor, npoint: int,
+                          skip_near_origin: bool = True) -> torch.Tensor:
     """xyz (B, N, 3) float32 -> (B, npoint) int32 indices into N.
+    `skip_near_origin`: leave points with ||p||^2 <= 1e-3 out of the
+    candidates (the reference kernel's exclusion; off, every point is one).
 
     A CUDA tensor goes to the kernel that `fps_route` names (contiguous
     float32 required), a CPU tensor to the plain version."""
     if xyz.device.type == "cpu":
-        return fps_plain(xyz, npoint)
-    return _fps_cuda(xyz, npoint)
+        return fps_plain(xyz, npoint, skip_near_origin)
+    return _fps_cuda(xyz, npoint, skip_near_origin)
 
 
 furthest_point_sample.launches = 0

@@ -9,6 +9,16 @@ package's `fold_in` key chain, so a step's draw depends on nothing but
 its place in the run. `Trainer.step_times` keeps, for each step, the
 wait for the loader, the host's time for the step (queueing it and
 reading its losses back) and, on a CUDA card, its device time.
+
+Data parallel (`group`, a `collectives.DataGroup`; `pick_mesh` and
+the sharded steps there): one process a rank, `pick_world` ranks. Each
+rank's loader reads its rows of each global batch (`DataLoader(shard=)`:
+the single-process loader's global batch at the same seed, cut into
+rank-ordered rows), the steps take the global batch's statistics, losses
+and gradient sum (`trainer.train_step`), and each train step's posterior
+noise is the global draw of `step_generator`, of which a rank takes its
+rows. Only rank 0 holds the checkpoints, the log board and the
+visualizations; a resumed or finetuned run broadcasts rank 0's state.
 """
 
 from __future__ import annotations
@@ -20,7 +30,10 @@ import numpy as np
 import torch
 
 from ..config import bn_momentum
-from ..models.common import set_bn_momentum
+from ..collectives import shard_rows
+from ..models.common import set_bn_momentum, set_data_group
+from ..parallel.mesh import (broadcast_module, broadcast_tensors,
+                             replicated_check)
 from ..utils.logging import LogBoard, LossRecorder
 from .checkpoint import CheckpointIO
 from .trainer import (
@@ -52,14 +65,28 @@ def step_generator(seed: int, epoch: int, phase: str, step: int,
     return torch.Generator(device=device).manual_seed(int(state))
 
 
-class Trainer:
-    """The optimizer, schedules and steps of one training stage."""
+def pick_world(batch_size: int, n_cards: int) -> int:
+    """The ranks a run takes: the largest count of cards, at most
+    `n_cards`, that divides the batch size."""
+    n = max(1, n_cards)
+    while n > 1 and batch_size % n != 0:
+        n -= 1
+    return n
 
-    def __init__(self, cfg: dict, model, log=print, save_path=None):
+
+class Trainer:
+    """The optimizer, schedules and steps of one training stage, on this
+    process's rank of `group` (None: the whole batch), which it sets on
+    the model (`common.set_data_group`) for the run."""
+
+    def __init__(self, cfg: dict, model, log=print, save_path=None,
+                 group=None):
         self.cfg = cfg
         self.model = model
         self.log = log
         self.save_path = save_path
+        self.group = group
+        set_data_group(model, group)
         opt = cfg["optimizer"]
         self.frozen = tuple(cfg["train"].get("freeze", []))
         self.optimizer = Adam(
@@ -78,23 +105,55 @@ class Trainer:
 
     def visualize_step(self, batch: dict, epoch: int, phase: str, it: int):
         """Dump predicted and GT 16^3 voxel snapshots of `batch` (an eval
-        forward with the shapes exported)."""
+        forward with the shapes exported; in a data-parallel run, rank 0's
+        rows, the first of the global batch)."""
         if self.model.phase != "completion" or "object_voxels" not in batch:
             return
         from ..utils.visualization import dump_training_snapshot
 
         was_training = self.model.training
+        set_data_group(self.model, None)  # this rank's rows alone
         self.model.eval()
-        with torch.no_grad():
-            _, _, voxels, pids = self.model(
-                {**to_device(batch, self.device), "export_shape": True})
-        self.model.train(was_training)
+        try:
+            with torch.no_grad():
+                _, _, voxels, pids = self.model(
+                    {**to_device(batch, self.device), "export_shape": True})
+        finally:
+            set_data_group(self.model, self.group)
+            self.model.train(was_training)
         dump_training_snapshot(
             os.path.join(self.save_path or "out",
                          self.cfg["log"]["vis_path"]),
             epoch, phase, it, voxels.cpu().numpy(), pids.cpu().numpy(),
             np.asarray(batch["object_voxels"]),
             self.cfg["data"]["completion_limit_in_train"])
+
+    def rank_noise(self, rows: int, gen: torch.Generator):
+        """This rank's rows of the posterior noise of a train step's global
+        batch of `rows` scenes: the draw that `ONet.compute_loss` makes
+        from `gen` for the whole batch in one process ((rows x P, z_dim),
+        P the proposals completed a scene); None outside the completion
+        phase."""
+        if self.model.phase != "completion":
+            return None
+        P = self.model.completion_limit
+        eps = torch.randn((rows * P, self.model.completion.z_dim),
+                          generator=gen, device=gen.device)
+        mine = shard_rows(rows, self.group.rank, self.group.world)
+        return eps[mine.start * P:mine.stop * P].to(self.device)
+
+    def broadcast_state(self, *values: float) -> list:
+        """Rank 0's parameters, running statistics and Adam state on every
+        rank, and its `values` (numbers) returned; then every rank's
+        tensors checked equal to rank 0's."""
+        opt = self.optimizer
+        state = torch.tensor([float(opt.count), *map(float, values)],
+                             dtype=torch.float64, device=self.device)
+        broadcast_module(self.model, self.group)
+        broadcast_tensors([state, *opt.mu, *opt.nu], self.group)
+        opt.count = int(state[0])
+        replicated_check(self.model, self.group)
+        return state[1:].tolist()
 
     def run_epoch(self, loader, epoch: int, phase: str,
                   board: LogBoard | None = None, print_step: int = 10):
@@ -114,7 +173,8 @@ class Trainer:
             if batch is None:
                 break
             t_step = time.perf_counter()
-            if vis_step and (it + 1) % vis_step == 0:
+            if (vis_step and (it + 1) % vis_step == 0
+                    and (self.group is None or self.group.rank == 0)):
                 self.visualize_step(batch, epoch, phase, it + 1)
             if cuda:
                 events = [torch.cuda.Event(enable_timing=True)
@@ -122,9 +182,12 @@ class Trainer:
                 events[0].record()
             dev_batch = to_device(batch, self.device)
             gen = step_generator(self.seed, epoch, phase, it, self.device)
+            eps = None
+            if phase == "train" and self.group is not None:
+                eps = self.rank_noise(loader.batch_rows(it), gen)
             if phase == "train":
                 losses = train_step(self.model, self.optimizer, dev_batch,
-                                    lr, self.completion_weight,
+                                    lr, self.completion_weight, eps=eps,
                                     generator=gen)
             else:
                 losses = eval_step(self.model, dev_batch,
@@ -157,15 +220,20 @@ class Trainer:
 
 def train(cfg: dict, model, train_loader, val_loader,
           checkpoint: CheckpointIO | None = None,
-          board: LogBoard | None = None, start_epoch: int = 0, log=print):
+          board: LogBoard | None = None, start_epoch: int = 0, log=print,
+          group=None):
     """The training loop: resume (the newest sibling run's `model_last`)
     when `resume` is set and one exists, else `finetune` from the `weight`
     paths when set; then each epoch a train pass, a val pass whose mean
     `total` steps the plateau schedule, `model_best` on a new best val
     loss (copied to `model_last`), else `model_last` every `log.save_step`
-    epochs and at the last. Returns the `Trainer`."""
+    epochs and at the last. Returns the `Trainer`.
+
+    With a data `group` each rank runs this loop on its loaders' rows;
+    only rank 0 passes `checkpoint` and `board`, and what it resumed or
+    finetuned is broadcast before the first step."""
     trainer = Trainer(cfg, model, log=log, save_path=checkpoint.save_path
-                      if checkpoint is not None else None)
+                      if checkpoint is not None else None, group=group)
     min_loss = np.inf
     if checkpoint is not None:
         resumed = False
@@ -180,6 +248,11 @@ def train(cfg: dict, model, train_loader, val_loader,
         if not resumed and cfg.get("finetune"):
             for w in cfg.get("weight", []):
                 checkpoint.finetune(model, w)
+    if group is not None:
+        start_epoch, min_loss, trainer.plateau.lr, trainer.plateau.best = (
+            trainer.broadcast_state(start_epoch, min_loss, trainer.plateau.lr,
+                                    trainer.plateau.best))
+        start_epoch = int(start_epoch)
 
     epochs = cfg["train"]["epochs"]
     print_step = cfg["log"].get("print_step", 10)

@@ -15,6 +15,16 @@ no gradient either: their parameters do not require one, so autograd
 leaves out what only they would need (the JAX package computes their
 gradients and Adam moments and masks the update; the parameters that
 train come out the same).
+
+Data parallel (the model's `data_group`, a `collectives.DataGroup` that
+`common.set_data_group` gives it; `make_train_step(mesh=)` there): each
+rank holds its rows of the global batch, the batch norms take the global
+batch's statistics and the loss terms are the global batch's parts, so
+the sum of the ranks' gradients, all-reduced before `Adam.step`, is the
+global loss's gradient, and Adam runs the same update on every rank. The loss terms returned are
+the global ones (the parts summed over the ranks). DDP is not used: its
+mean of per-rank gradients is another loss, and the frozen modules'
+parameters, which need no gradient, are simply not in the all-reduce.
 """
 
 from __future__ import annotations
@@ -23,6 +33,9 @@ import dataclasses
 
 import torch
 from torch import nn
+
+from ..collectives import global_sum
+from ..parallel.mesh import all_reduce_grads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,20 +134,35 @@ class Adam:
             self.nu[i] = torch.as_tensor(state[f"nu/{n}"]).to(self.nu[i])
 
 
+def _global_terms(losses: dict, group) -> dict:
+    """The loss terms, detached, summed over the ranks (one all-reduce)."""
+    losses = {k: v.detach() for k, v in losses.items()}
+    if group is None:
+        return losses
+    keys = sorted(losses)
+    summed = global_sum(torch.stack([losses[k].float() for k in keys]),
+                        group)
+    return dict(zip(keys, summed.unbind()))
+
+
 def train_step(model, optimizer: Adam, batch: dict, lr: float,
                completion_weight: float = 1.0, eps=None,
                generator=None) -> dict:
     """One step in train mode: forward, loss, backward, Adam. `eps` /
-    `generator`: the posterior noise (see `ISCNet.forward`). Returns the
-    loss terms, detached."""
+    `generator`: the posterior noise (see `ISCNet.forward`; with a data
+    group, this rank's rows of it). With a `model.data_group`, `batch`
+    is this rank's rows of a global batch, see the module docstring.
+    Returns the loss terms, detached."""
+    group = model.data_group
     for p in optimizer.params:
         p.grad = None
     model.train()
     out = model(batch, eps=eps, generator=generator)
     losses = model.loss(out, batch, completion_weight)
     losses["total"].backward()
+    all_reduce_grads(optimizer.params, group)
     optimizer.step(lr)
-    return {k: v.detach() for k, v in losses.items()}
+    return _global_terms(losses, group)
 
 
 @torch.no_grad()
@@ -142,10 +170,12 @@ def eval_step(model, batch: dict, completion_weight: float = 1.0,
               generator=None) -> dict:
     """The loss terms of `batch` in eval mode (running statistics, the
     posterior mean z, the fused decoder). `generator` feeds `random`
-    sampling only."""
+    sampling only. With a `model.data_group`, the global batch's terms,
+    as in `train_step`."""
     model.eval()
     out = model(batch, generator=generator)
-    return model.loss(out, batch, completion_weight)
+    return _global_terms(model.loss(out, batch, completion_weight),
+                         model.data_group)
 
 
 @dataclasses.dataclass

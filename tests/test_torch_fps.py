@@ -60,6 +60,24 @@ def test_plain_matches_xla_and_pallas_interpret(make):
         assert not got.any()
 
 
+@pytest.mark.parametrize("make", [
+    _batch2_different, _exact_duplicates, _near_origin_block,
+    _all_near_origin,
+], ids=lambda f: f.__name__.lstrip("_"))
+def test_plain_without_near_origin_skip(make):
+    """`skip_near_origin=False`: every point is a candidate, the points
+    near the origin included, as in JAX's scan and Pallas kernel."""
+    xyz, npoint = make(np.random.RandomState(7))
+    got = tfps.fps_plain(t(xyz), npoint, skip_near_origin=False)
+    assert_equal(got, jfps._fps_xla(jnp.asarray(xyz), npoint, False))
+    assert_equal(got, jfps._fps_pallas(jnp.asarray(xyz), npoint, False,
+                                       interpret=True))
+    assert_equal(tfps.furthest_point_sample(t(xyz), npoint,
+                                            skip_near_origin=False), got)
+    if make is _all_near_origin:  # candidates now: a real selection
+        assert got.unique().numel() == npoint
+
+
 MAIN_PATH_SMALL = (2048, 1024, 512, 1024)  # SA2, SA3, SA4, seed_fps
 
 

@@ -32,6 +32,8 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    # the multi-rank tests' rank workers run in processes without JAX
+    yield os.path.join(ROOT, "tests", "torch_dist.py")
 
 
 def _imported_modules(path):

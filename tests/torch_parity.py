@@ -37,8 +37,11 @@ TEST_YAML = os.path.join(ROOT, "configs", "iscnet_test.yaml")
 CACHE_DIR = os.path.join(ROOT, ".jax_cache", "torch_parity")
 # what a cached set-up depends on besides its arguments
 _CACHE_SOURCES = ("rfdnet_tpu/models", "rfdnet_tpu/config",
-                  "rfdnet_tpu/data/synthetic.py", "configs/iscnet_test.yaml",
-                  "tests/torch_parity.py")
+                  "rfdnet_tpu/data/synthetic.py", "rfdnet_tpu/ops",
+                  "rfdnet_tpu/parallel", "rfdnet_tpu/train",
+                  "configs/iscnet_test.yaml", "configs/iscnet.yaml",
+                  "configs/iscnet_detection.yaml",
+                  "configs/iscnet_completion.yaml", "tests/torch_parity.py")
 
 # f32 module outputs (tests/test_parity_torch.py:41-42)
 ATOL, RTOL = 3e-5, 2e-4
@@ -96,9 +99,9 @@ def scene(seed: int, num_points: int = 4096) -> np.ndarray:
     )["point_clouds"]
 
 
-def _source_digest() -> str:
+def _source_digest(extra=()) -> str:
     h = hashlib.sha1(jax.__version__.encode())
-    for rel in _CACHE_SOURCES:
+    for rel in (*_CACHE_SOURCES, *extra):
         path = os.path.join(ROOT, rel)
         files = ([os.path.join(d, f) for d, _, fs in os.walk(path)
                   for f in fs if f.endswith(".py")]
@@ -110,12 +113,15 @@ def _source_digest() -> str:
     return h.hexdigest()
 
 
-def cached_tree(key: str, compute):
+def cached_tree(key: str, compute, sources=()):
     """compute() (a nested dict of numpy arrays), stored in CACHE_DIR under
-    `key` and a digest of the sources it depends on: the first process
-    computes it under a file lock, the others wait and read the file."""
+    `key` and a digest of the sources it depends on (and of `sources`, the
+    paths of further files, such as the test that defines the inputs):
+    the first process computes it under a file lock, the others wait and
+    read the file."""
     os.makedirs(CACHE_DIR, exist_ok=True)
-    path = os.path.join(CACHE_DIR, f"{key}-{_source_digest()[:16]}.npz")
+    path = os.path.join(CACHE_DIR,
+                        f"{key}-{_source_digest(sources)[:16]}.npz")
     with open(path + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
@@ -306,11 +312,15 @@ def step_variables(phase: str):
              "completion": "stage3_joint"}[phase]
     jcfg, _ = train_configs(stage)
     model = jcfg.build_model()
-    b = {k: jnp.asarray(v) for k, v in grid_batch(0).items()}
-    variables = jax.jit(lambda b: model.init(
-        jax.random.PRNGKey(0), b, train=False,
-        rng=jax.random.PRNGKey(1)))(b)
-    return perturb(variables, 0)
+
+    def init():
+        b = {k: jnp.asarray(v) for k, v in grid_batch(0).items()}
+        variables = jax.jit(lambda b: model.init(
+            jax.random.PRNGKey(0), b, train=False,
+            rng=jax.random.PRNGKey(1)))(b)
+        return perturb(variables, 0)
+
+    return cached_tree(f"step_variables-{phase}", init)
 
 
 def _adam_first_moments(opt_state) -> dict:
@@ -452,3 +462,212 @@ def check_train_step(stage: str) -> None:
             assert_close(after[name], jafter[name], atol=STEP_STATS_ATOL,
                          rtol=STEP_STATS_RTOL, what=name)
             assert not torch.equal(after[name], before[name]), name
+
+
+# -------------------------------------------------------------- serving
+# Shared by `test_torch_parallel_serve*.py`: `tests/test_parallel_serve.py`'s
+# model and batch (full width, 1024 points, 8^3 grids, a batch of 8) and
+# the JAX package's `make_sharded_generate` on its 8-device mesh.
+SERVE_B = 8
+SERVE_MODEL_KW = dict(phase="completion", completion_limit=4,
+                      generate_limit=8)
+SERVE_KW = dict(nms_iou=0.25, use_cls_nms=True, dump_threshold=0.05,
+                remove_empty_box=True, decode_grid_res=8)
+_GT_KEYS = ("center_label", "heading_class_label", "heading_residual_label",
+            "size_class_label", "size_residual_label", "box_label_mask",
+            "sem_cls_label")
+
+
+def serve_reference():
+    """(numpy batch of SERVE_B scenes with their GT, JAX's sharded
+    `grids` / `parsed` / `gen` as numpy, port ISCNet on the CPU with the
+    same variables)."""
+    from rfdnet_tpu.config.scannet import ScannetConfig
+    from rfdnet_tpu.parallel.mesh import make_mesh
+    from rfdnet_tpu.parallel.serve import make_sharded_generate
+    from rfdnet_tpu_torch.models import ISCNet as TISCNet
+
+    dc = ScannetConfig()
+    model = ISCNet(mean_size_arr=dc.mean_size_arr, **SERVE_MODEL_KW)
+    full = synthetic_scene_batch(np.random.RandomState(3),
+                                 batch_size=SERVE_B, num_points=1024,
+                                 mean_size_arr=dc.mean_size_arr)
+
+    def compute():
+        init_batch = synthetic_scene_batch(
+            np.random.RandomState(0), batch_size=2, num_points=1024,
+            mean_size_arr=dc.mean_size_arr)
+        variables = jax.jit(lambda b: model.init(
+            jax.random.PRNGKey(0), b, train=False,
+            rng=jax.random.PRNGKey(1)))(
+            {k: jnp.asarray(v) for k, v in init_batch.items()})
+        serve = make_sharded_generate(model, variables,
+                                      make_mesh(jax.devices()[:8]),
+                                      **SERVE_KW)
+        out = serve({"point_clouds": jnp.asarray(full["point_clouds"])})
+        return {"variables": variables, "grids": out["grids"],
+                "parsed": out["parsed"], "gen": out["gen"]}
+
+    tree = cached_tree("parallel_serve", compute)
+    port = load_port(TISCNet(mean_size_arr=tconfig.MEAN_SIZE_ARR,
+                             **SERVE_MODEL_KW), tree.pop("variables"))
+    return full, tree, port
+
+
+def serve_ap_table(out, full, jax_helpers: bool = False) -> dict:
+    """The Tester's protocol on served outputs (numpy): each scene's
+    confident per-class proposals and its GT boxes, one scene a step,
+    then the metrics, with the JAX package's helpers or the port's."""
+    from rfdnet_tpu.config.scannet import ScannetConfig
+    from rfdnet_tpu.eval import ap_helper as jap
+    from rfdnet_tpu_torch.eval import ap_helper as tap
+
+    dc = ScannetConfig()
+    calc = (jap.APCalculator(0.25, dc.class2type) if jax_helpers
+            else tap.APCalculator(0.25, tconfig.CLASS2TYPE))
+    for i in range(full["point_clouds"].shape[0]):
+        p_i = {k: v[i:i + 1] for k, v in out["parsed"].items()}
+        b_i = {k: full[k][i:i + 1] for k in _GT_KEYS}
+        ids = out["gen"]["proposal_ids"][i:i + 1]
+        if jax_helpers:
+            pred = jap.assembly_pred_map_cls(
+                p_i, dc, conf_thresh=0.05, per_class_proposal=True,
+                proposal_ids=ids)
+            gt = jap.assembly_gt_map_cls(jap.parse_groundtruths(b_i, dc))
+        else:
+            pred = tap.assembly_pred_map_cls(
+                p_i, conf_thresh=0.05, per_class_proposal=True,
+                proposal_ids=ids)
+            gt = tap.assembly_gt_map_cls(tap.parse_groundtruths(b_i))
+        calc.step(pred, gt)
+    return calc.compute_metrics(parallel=False)
+
+
+def assert_serve_matches(got, want, full, grid_atol: float = 5e-3):
+    """The port's served outputs (numpy) against JAX's: the AP tables
+    equal exactly; the grids within `grid_atol` where both selected the
+    same proposal (and GT box and class) into the same valid slot, which
+    most slots are."""
+    table = serve_ap_table(got, full)
+    want_table = serve_ap_table(want, full, jax_helpers=True)
+    assert set(table) == set(want_table)
+    for k in want_table:
+        assert table[k] == want_table[k], (k, table[k], want_table[k])
+    v_g = got["gen"]["valid"].reshape(-1)
+    v_w = want["gen"]["valid"].reshape(-1)
+    same = v_g & v_w & (got["gen"]["proposal_ids"].reshape(-1, 3)
+                        == want["gen"]["proposal_ids"].reshape(-1, 3)
+                        ).all(axis=1)
+    assert same.mean() > 0.9, same.mean()
+    np.testing.assert_allclose(got["grids"][same], want["grids"][same],
+                               atol=grid_atol)
+
+
+def served_numpy(out) -> dict:
+    """`grids`, `parsed` and `gen` of a served output, as numpy."""
+    return {"grids": out["grids"].numpy(),
+            "parsed": {k: v.numpy() for k, v in out["parsed"].items()},
+            "gen": {k: v.numpy() for k, v in out["gen"].items()}}
+
+
+# -------------------------------------------------------- data parallel
+# Shared by `test_torch_dp_train*.py`: the JAX package's train step with
+# the batch sharded over its 8-device mesh, and the port's numpy state.
+DP_BATCH = 8
+
+
+def port_state(variables) -> dict:
+    """The port's numpy state_dict of flax variables."""
+    return {k: v.numpy() for k, v in from_flax(variables).items()}
+
+
+def running_stats(state: dict) -> dict:
+    return {k: v for k, v in state.items() if "running" in k}
+
+
+def jax_sharded_step(model, dc, tx, variables, batch, key, lr, bnm, **kw):
+    """JAX's train step with the batch sharded over 8 devices: (new
+    state, losses)."""
+    from rfdnet_tpu.parallel.mesh import make_mesh, replicated, shard_batch
+    from rfdnet_tpu.train import trainer as jtrainer
+
+    step = jtrainer.make_train_step(model, dc, tx, donate=False, **kw)
+    state = jtrainer.TrainState(
+        step=jnp.int32(0), params=variables["params"],
+        batch_stats=variables["batch_stats"],
+        opt_state=tx.init(variables["params"]))
+    mesh = make_mesh(jax.devices()[:8])
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    return step(jax.device_put(state, replicated(mesh)),
+                shard_batch(jb, mesh), key, jnp.float32(lr),
+                jnp.float32(bnm))
+
+
+DP_DETECTION_SEED = 1
+
+
+def dp_detection_spec():
+    """The port's step spec (`torch_dist.train_step_rank`) of the small
+    detection model on `grid_batch(DP_DETECTION_SEED)` at batch 8."""
+    jcfg, cfg = train_configs("stage1_detection")
+    return dict(cfg=cfg, state=port_state(step_variables("detection")),
+                batch=grid_batch(DP_DETECTION_SEED, batch_size=DP_BATCH),
+                lr=float(jcfg.config["optimizer"]["lr"]),
+                bn_momentum=jcfg.bn_momentum(0))
+
+
+def dp_detection_jax() -> dict:
+    """JAX's sharded step of `dp_detection_spec`'s model and batch: its
+    loss terms and the running statistics after it (computed once, see
+    `cached_tree`)."""
+    from rfdnet_tpu.train import trainer as jtrainer
+
+    def compute():
+        jcfg, _ = train_configs("stage1_detection")
+        tx, scale_tree = jtrainer.make_optimizer_with_specs(
+            jcfg.config["optimizer"], jcfg.config["model"])
+        new, losses = jax_sharded_step(
+            jcfg.build_model(), jcfg.dataset_config, tx,
+            step_variables("detection"),
+            grid_batch(DP_DETECTION_SEED, batch_size=DP_BATCH),
+            jax.random.PRNGKey(DP_DETECTION_SEED),
+            float(jcfg.config["optimizer"]["lr"]), jcfg.bn_momentum(0),
+            lr_scale_tree=scale_tree,
+            frozen=tuple(jcfg.config["train"]["freeze"]))
+        return dict(losses=dict(losses), stats=running_stats(port_state(
+            {"params": new.params, "batch_stats": new.batch_stats})))
+
+    out = cached_tree("dp_detection_jax", compute)
+    return dict(losses={k: float(v) for k, v in out["losses"].items()},
+                stats=out["stats"])
+
+
+def assert_dp_matches_one_process(res: list, one: dict, what: str = "",
+                                  stats_atol: float = 1e-3,
+                                  stats_rtol: float = 1e-2) -> None:
+    """Every rank's loss terms within 1e-3 relative of the one-process
+    step's and its running statistics within the given tolerances
+    (`tests/test_train.py`'s data-parallel ones), and every rank's state
+    equal to rank 0's (Adam ran the same update on each)."""
+    for r in res:
+        assert set(r["losses"]) == set(one["losses"])
+        for k, v in one["losses"].items():
+            assert abs(r["losses"][k] - v) <= 1e-3 * abs(v) + 1e-6, (
+                what, k, r["losses"][k], v)
+        for name, s in running_stats(one["state"]).items():
+            assert_close(r["state"][name], s, atol=stats_atol,
+                         rtol=stats_rtol, what=f"{what}: {name}")
+        for name, p in r["state"].items():
+            assert_equal(p, res[0]["state"][name], what=f"{what}: {name}")
+
+
+def assert_dp_matches_jax(r: dict, jax_out: dict, what: str = "") -> None:
+    """A rank's detection-step loss terms at f32's tolerances of JAX's
+    sharded step's and its running statistics at the port's one-process
+    step tolerances (STEP_STATS_ATOL / STEP_STATS_RTOL)."""
+    assert set(r["losses"]) == set(jax_out["losses"])
+    for k, v in jax_out["losses"].items():
+        assert_close(r["losses"][k], v, what=f"{what}: {k}")
+    for name, s in jax_out["stats"].items():
+        assert_close(r["state"][name], s, atol=STEP_STATS_ATOL,
+                     rtol=STEP_STATS_RTOL, what=f"{what}: {name}")
