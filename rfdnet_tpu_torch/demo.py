@@ -82,14 +82,19 @@ def generate_grids(cfg: dict, model, point_clouds: torch.Tensor, marks=None):
     return out["end_points"], out["parsed"], out.get("gen"), grids
 
 
-def make_generator(cfg: dict, model, mise_impl: str = "device") -> Generator3D:
+def make_generator(cfg: dict, model, mise_impl: str = "device",
+                   mxu_dtype=None) -> Generator3D:
     """The mesh generator that `cfg` describes over `model`'s decoder, its
     octree (at `upsampling_steps > 0`) on the card (`mise_impl="device"`)
-    or on the host (`"host"`)."""
+    or on the host (`"host"`). `mxu_dtype`: the operand type of its fused
+    decodes (the grids and the octree's levels; the decoder's own when
+    None); refine and normals decode through the layer chain in the
+    decoder's own."""
     gen_cfg = cfg["generation"]
     sample = bool(gen_cfg["use_sampling"])
     return Generator3D(
-        functools.partial(model.decode_occupancy, sample=sample),
+        functools.partial(model.decode_occupancy, sample=sample,
+                          mxu_dtype=mxu_dtype),
         threshold=cfg["data"]["threshold"],
         resolution0=gen_cfg["resolution_0"],
         upsampling_steps=gen_cfg["upsampling_steps"],
@@ -97,7 +102,8 @@ def make_generator(cfg: dict, model, mise_impl: str = "device") -> Generator3D:
         simplify_nfaces=gen_cfg.get("simplify_nfaces"),
         with_normals=gen_cfg.get("with_normals", False),
         mise_impl=mise_impl,
-        bind_fn=functools.partial(model.occupancy_decoder, sample=sample),
+        bind_fn=functools.partial(model.occupancy_decoder, sample=sample,
+                                  mxu_dtype=mxu_dtype),
         grad_bind_fn=functools.partial(model.gradient_decoder, sample=sample),
     )
 

@@ -24,10 +24,16 @@ thread, on a CUDA stream of its own, while the main thread queues scene
 i+1's device work (the marching cubes library releases the interpreter
 lock). `run(..., overlap=False)` runs the scenes one after the other.
 
-The grid decode is always the CUDA kernel on the card; `data.decoder_bf16`
-picks its operand type. `generation.decoder_impl`, the JAX package's
-choice between its Pallas kernel and XLA, has no counterpart and is
-ignored. The grids cross to the host as dense float32: the f16 and sparse
+Every occupancy decode of a scene but refine's and normals' goes through
+the fused CBN decoder (a CUDA kernel on the card) in the decoder's own
+operand type, bf16 with `data.decoder_bf16` and f32 without, as the JAX
+Tester's flax chain does. `generation.decoder_impl` is the JAX Tester's
+choice of the grid decode (`decoder_impl_dtype`): "pallas" puts the grid
+decode and the MISE level decodes on the bf16 kernel whatever
+`decoder_bf16` says (the completion loss, the 16^3 voxels and the
+gradient decodes keep the decoder's type); None and "flax" leave them in
+the decoder's type (the f32 kernel is the port's counterpart of the flax
+f32 chain). The grids cross to the host as dense float32: the f16 and sparse
 transfers of the JAX Tester exist for the TPU's host link and are not
 ported, nor is its f16 narrowing of the octree's decodes (the port keeps
 f32). With `refinement_step` or `with_normals` the scene's features and
@@ -93,6 +99,20 @@ def place_mesh_in_box(mesh, box_corners_cam: np.ndarray):
     return out
 
 
+def decoder_impl_dtype(gen_cfg: dict):
+    """The operand type of the grid and MISE decodes that
+    `generation.decoder_impl` asks for: torch.bfloat16 for "pallas" (the
+    JAX package's fused bf16 kernel), None (the decoder's own) for None or
+    "flax"."""
+    impl = gen_cfg.get("decoder_impl")
+    if impl == "pallas":
+        return torch.bfloat16
+    if impl in (None, "flax"):
+        return None
+    raise ValueError(f"generation.decoder_impl: {impl!r} is not "
+                     "'pallas', 'flax' or null")
+
+
 def _ms(t0: float) -> float:
     return (time.perf_counter() - t0) * 1e3
 
@@ -118,8 +138,10 @@ class Tester:
                                else gen_cfg["dump_threshold"])
         self.fit_to_scan = (cfg.get(mode, {}).get("phase", "") == "completion"
                             and self.generate_mesh)
-        self.generator = (make_generator(cfg, model) if self.generate_mesh
-                          else None)
+        self.grid_mxu_dtype = decoder_impl_dtype(gen_cfg)
+        self.generator = (make_generator(cfg, model,
+                                         mxu_dtype=self.grid_mxu_dtype)
+                          if self.generate_mesh else None)
         self._sample_z = bool(gen_cfg["use_sampling"])
         # the dense grids come from `ISCNet.generate`; an octree from the
         # generator, after it
@@ -154,7 +176,8 @@ class Tester:
             data, nms_iou=ec["nms_iou"], use_cls_nms=ec["cls_nms"],
             dump_threshold=self.dump_threshold,
             remove_empty_box=ec["remove_empty_box"],
-            decode_grid_res=self._grid_res, grid_sample=self._sample_z)
+            decode_grid_res=self._grid_res, grid_sample=self._sample_z,
+            grid_mxu_dtype=self.grid_mxu_dtype)
         if events is not None:
             events[1].record()
         octree = None

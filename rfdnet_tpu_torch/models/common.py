@@ -6,11 +6,12 @@ is a mechanical rename. A module's train mode is torch's (`model.train()`
 / `model.eval()`); the batch norms' momentum is an attribute that
 `set_bn_momentum` sets (the JAX package passes it to every call).
 
-The bf16 MLP chains (`data.mlp_bf16`, `set_compute_dtype`): a `Dense` with
-a `compute_dtype` multiplies in that type (operands rounded to it, the
-product accumulated in f32 by the matrix unit and rounded once), adds its
-f32 bias in f32 and returns that type; a batch norm normalises in f32 and
-returns its input's type. Parameters stay f32. A `Dense` without one
+The bf16 chains (`data.mlp_bf16`, `set_compute_dtype`; the decoder's
+blocks under `data.decoder_bf16`): a `Dense` with a `compute_dtype`
+multiplies in that type as the JAX package's `Dense` does (operands
+rounded to it, the products summed in f32, the f32 bias added in f32, and
+that sum rounded once to the type it returns; `low_precision_product`);
+a batch norm normalises in f32 and returns its input's type. Parameters stay f32. A `Dense` without one
 takes its input in f32 (the f32 heads of a bf16 chain).
 """
 
@@ -39,10 +40,36 @@ class Dense(nn.Linear):
         dt = self.compute_dtype
         if dt is None:
             return super().forward(x.to(self.weight.dtype))
-        y = nn.functional.linear(x.to(dt), self.weight.to(dt))
+        y = low_precision_product(x.to(dt), self.weight.to(dt))
         if self.bias is not None:
-            y = y.to(self.bias.dtype) + self.bias
+            y = y + self.bias
         return y.to(dt)
+
+
+class _LowPrecisionProduct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda:
+            return torch.mm(x, w.t(), out_dtype=torch.float32)
+        return x.float() @ w.float().t()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return (g @ w.float()).to(x.dtype), (g.t() @ x.float()).to(w.dtype)
+
+
+def low_precision_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w.T for x (..., in) and w (out, in) in one low-precision type,
+    the exact products summed in f32 and returned in f32: on the card one
+    tensor-core GEMM with an f32 output (`torch.mm(out_dtype=)`), on the
+    CPU the f32 product of the widened operands. The gradients are f32
+    products of the widened operands rounded to the operands' type, as
+    JAX's transposed dot gives them; they are differentiable again (the
+    refinement's second derivatives)."""
+    y = _LowPrecisionProduct.apply(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[0])
 
 
 def set_compute_dtype(module: nn.Module, dtype) -> None:

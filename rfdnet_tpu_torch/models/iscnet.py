@@ -420,7 +420,7 @@ class ISCNet(nn.Module):
     def generate(self, data: dict, nms_iou=0.25, use_cls_nms=True,
                  dump_threshold=0.5, remove_empty_box=False,
                  export_voxels=True, decode_grid_res=None, grid_padding=0.1,
-                 grid_sample: bool = False, marks=None):
+                 grid_sample: bool = False, grid_mxu_dtype=None, marks=None):
         """Test-time forward: detection + NMS and, in the completion phase,
         completion conditioning. With `object_points` and
         `object_points_occ` in `data` (the GT objects' occupancy sets), also
@@ -430,8 +430,10 @@ class ISCNet(nn.Module):
         `np.packbits` order). With `decode_grid_res`, every selected
         proposal's dense occupancy logit grid (`grids`, (B*G, nx, nx,
         nx)), at the prior-mean z or, with `grid_sample`, at `sample_z`'s
-        draw. `marks`: optional list that receives a recorded CUDA event
-        after each stage. Eval mode only."""
+        draw, in `grid_mxu_dtype` operands (the decoder's own when None;
+        the Tester's `generation.decoder_impl`). `marks`: optional list
+        that receives a recorded CUDA event after each stage. Eval mode
+        only."""
         if self.training:
             raise RuntimeError("ISCNet.generate runs in eval mode")
         pc = data["point_clouds"]
@@ -472,23 +474,26 @@ class ISCNet(nn.Module):
             Nb = gen["features"].shape[0]
             logits = self.decode_occupancy(
                 gen["features"], gen["cls_codes"],
-                pts[None].expand(Nb, -1, -1), sample=grid_sample)
+                pts[None].expand(Nb, -1, -1), sample=grid_sample,
+                mxu_dtype=grid_mxu_dtype)
             out["grids"] = logits.reshape(Nb, nx, nx, nx)
             _mark(marks, "grid_decode")
         return out
 
     @torch.no_grad()
     def decode_occupancy(self, features, cls_codes, points, z=None,
-                         sample: bool = False):
+                         sample: bool = False, mxu_dtype=None):
         """features (Nb, c_dim), cls_codes (Nb, num_class), points
-        (Nb, T, 3) -> logits (Nb, T), through the fused CBN decoder. z:
-        (Nb, z_dim) given, else with `sample` `sample_z`'s draw (the
+        (Nb, T, 3) -> logits (Nb, T), through the fused CBN decoder in
+        `mxu_dtype` operands (the decoder's own when None). z: (Nb, z_dim)
+        given, else with `sample` `sample_z`'s draw (the
         `generation.use_sampling` option), else the prior mean."""
-        return self.occupancy_decoder(features, cls_codes, z, sample)(points)
+        return self.occupancy_decoder(features, cls_codes, z, sample,
+                                      mxu_dtype)(points)
 
     @torch.no_grad()
     def occupancy_decoder(self, features, cls_codes, z=None,
-                          sample: bool = False):
+                          sample: bool = False, mxu_dtype=None):
         """`decode_occupancy` bound to one scene's proposals: the CBN tables
         are folded once and z is drawn once, then the result decodes
         points (k, T, 3) of proposals `rows` ((k,) int64, all when None)
@@ -498,7 +503,7 @@ class ISCNet(nn.Module):
             z = (self.sample_z(c.shape[0], c.device) if sample
                  else torch.zeros((c.shape[0], self.completion.z_dim),
                                   device=c.device))
-        bound = self.completion.bind_fused(z, c)
+        bound = self.completion.bind_fused(z, c, mxu_dtype)
 
         def decode(points, rows=None):
             with torch.no_grad():

@@ -61,13 +61,15 @@ class _AffinelessBatchNorm(nn.Module):
                                          self.data_group)
         else:
             mean, var = self.running_mean, self.running_var
+        # statistics in f32; the multiply-add in the input's dtype
         scale = torch.rsqrt(var + self.eps)
-        return x * scale + (-mean * scale)
+        return x * scale.to(x.dtype) + (-mean * scale).to(x.dtype)
 
 
 class CBatchNorm(nn.Module):
     """Conditional batch norm: affine-free BN, then a per-channel affine
-    (gamma, beta) predicted from the code c. x (B, T, f), c (B, c_dim)."""
+    (gamma, beta) predicted from the code c in f32 and applied in the
+    input's dtype. x (B, T, f), c (B, c_dim)."""
 
     def __init__(self, c_dim: int, f_dim: int):
         super().__init__()
@@ -76,7 +78,9 @@ class CBatchNorm(nn.Module):
         self.bn = _AffinelessBatchNorm(f_dim)
 
     def forward(self, x, c):
-        return self.gamma(c)[:, None, :] * self.bn(x) + self.beta(c)[:, None, :]
+        net = self.bn(x)
+        g, b = self.gamma(c).to(net.dtype), self.beta(c).to(net.dtype)
+        return g[:, None, :] * net + b[:, None, :]
 
 
 class CResnetBlockConv1d(nn.Module):
@@ -129,12 +133,20 @@ class DecoderCBatchNorm(nn.Module):
     """Conditional-batch-norm implicit decoder: fc_p (3 -> hidden), fc_z,
     5 CResnet blocks conditioned on c, CBN -> ReLU -> fc_out logits.
     `forward` is the layer-by-layer chain; `ops.fused_cbn_decode` is the
-    fused one."""
+    fused one.
+
+    `compute_dtype` (`data.decoder_bf16`: torch.bfloat16) runs the blocks
+    as a chain in that type, as the JAX package's `compute_dtype`: fc_p
+    (+ fc_z) in f32, then cast; the block `Dense`s multiply in it (f32
+    bias) and return it; the batch norms keep it (statistics in f32); the
+    residual adds stay in it; the chain returns to f32 before the final
+    CBN and fc_out."""
 
     def __init__(self, c_dim: int = 512, hidden_size: int = 256,
-                 n_blocks: int = 5, z_dim: int = 32):
+                 n_blocks: int = 5, z_dim: int = 32, compute_dtype=None):
         super().__init__()
         self.z_dim = z_dim
+        self.compute_dtype = compute_dtype
         self.fc_p = Dense(3, hidden_size)
         if z_dim != 0:
             self.fc_z = Dense(z_dim, hidden_size)
@@ -143,14 +155,24 @@ class DecoderCBatchNorm(nn.Module):
         self.n_blocks = n_blocks
         self.bn = CBatchNorm(c_dim, hidden_size)
         self.fc_out = Dense(hidden_size, 1)
+        for blk in self.blocks:
+            blk.fc_0.compute_dtype = blk.fc_1.compute_dtype = compute_dtype
 
     @property
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.n_blocks)]
 
-    def first_layer(self, p, z):
-        """fc_p(p) (+ fc_z(z)): (Nb, T, 3), (Nb, z_dim) -> (Nb, T, hidden)."""
+    def first_layer(self, p, z, dtype=None):
+        """fc_p(p) (+ fc_z(z)): (Nb, T, 3), (Nb, z_dim) -> (Nb, T, hidden)
+        f32; with `dtype`, the f32 sum rounded to it as the last op writes
+        it (the fused decode's h0; no gradient)."""
         net = self.fc_p(p)
+        if dtype is not None:
+            with torch.no_grad():
+                out = torch.empty(net.shape, dtype=dtype, device=net.device)
+                if self.z_dim != 0 and z is not None:
+                    return torch.add(net, self.fc_z(z)[:, None, :], out=out)
+                return out.copy_(net)
         if self.z_dim != 0 and z is not None:
             net = net + self.fc_z(z)[:, None, :]
         return net
@@ -158,8 +180,12 @@ class DecoderCBatchNorm(nn.Module):
     def forward(self, p, z, c):
         """p (B, T, 3), z (B, z_dim) | None, c (B, c_dim) -> logits (B, T)."""
         net = self.first_layer(p, z)
+        if self.compute_dtype is not None:
+            net = net.to(self.compute_dtype)
         for blk in self.blocks:
             net = blk(net, c)
+        if self.compute_dtype is not None:
+            net = net.float()
         return self.fc_out(torch.relu(self.bn(net, c)))[..., 0]
 
 

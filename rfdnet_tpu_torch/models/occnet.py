@@ -7,7 +7,10 @@ Counterpart of `rfdnet_tpu/models/occnet.py`: `make_3d_grid`,
 VAE posterior encoder) and `compute_loss`. In train mode the loss decodes
 a sampled z layer by layer, with batch statistics and autograd; in eval
 mode both of its decodes go through `decode_fused`, which folds the
-running statistics and has no gradient.
+running statistics and has no gradient. `decoder_bf16` (the config's
+`data.decoder_bf16`) makes both bf16: the layer chain
+(`DecoderCBatchNorm.compute_dtype`) and the fused decode's operands
+(`mxu_dtype`, the tensor-core kernel on the card).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from torch import nn
 
 from ..ops import fold_cbn_constants, fused_cbn_decode
+from ..ops.cbn_decoder import bf16_weight_image
 from .layers import DecoderCBatchNorm, EncoderLatent
 from ..collectives import global_sum
 
@@ -40,7 +44,9 @@ class ONet(nn.Module):
         self.mxu_dtype = torch.bfloat16 if decoder_bf16 else torch.float32
         self.data_group = None  # see `common.set_data_group`
         cond_dim = c_dim + num_class * use_cls_for_completion
-        self.decoder = DecoderCBatchNorm(c_dim=cond_dim, z_dim=z_dim)
+        self.decoder = DecoderCBatchNorm(
+            c_dim=cond_dim, z_dim=z_dim,
+            compute_dtype=torch.bfloat16 if decoder_bf16 else None)
         # registered after the decoder, so that `weights.init_seeded` draws
         # the decoder's values before the encoder's
         if z_dim != 0:
@@ -61,11 +67,12 @@ class ONet(nn.Module):
         stacked (in, out) block weights and biases, and the output layer."""
         return self.bind_fused(z, c).operands(p)
 
-    def bind_fused(self, z, c) -> "FusedDecoder":
+    def bind_fused(self, z, c, mxu_dtype=None) -> "FusedDecoder":
         """The fused decode of z (Nb, z_dim) and codes c (Nb, c_dim) with
         its CBN tables and stacked weights folded once, for any number of
-        point sets."""
-        return FusedDecoder(self, z, c)
+        point sets, in `mxu_dtype` operands (the decoder's own,
+        `self.mxu_dtype`, when None)."""
+        return FusedDecoder(self, z, c, mxu_dtype)
 
     def decode_fused(self, p, z, c):
         """`decode` through the fused kernel, in `mxu_dtype` operands."""
@@ -142,13 +149,15 @@ def _bce_with_logits(logits, targets):
 
 class FusedDecoder:
     """`ONet.decode_fused` bound to one z and one set of codes: the CBN
-    tables and the stacked block weights are computed once, then each call
-    decodes points p (k, T, 3) of the proposals `rows` ((k,) int64, all
-    Nb when None) -> logits (k, T)."""
+    tables and the stacked block weights (for the bf16 kernel on the card,
+    also their slab image, `ops.cbn_decoder.bf16_weight_image`) are
+    computed once, then each call decodes points p (k, T, 3) of the
+    proposals `rows` ((k,) int64, all Nb when None) -> logits (k, T)."""
 
-    def __init__(self, onet: ONet, z, c):
+    def __init__(self, onet: ONet, z, c, mxu_dtype=None):
         dec = onet.decoder
-        self.decoder, self.mxu_dtype = dec, onet.mxu_dtype
+        self.decoder = dec
+        self.mxu_dtype = onet.mxu_dtype if mxu_dtype is None else mxu_dtype
         scales, shifts = fold_cbn_constants(dec, c)
         self.scales, self.shifts = scales.contiguous(), shifts.contiguous()
         self.z = z
@@ -158,14 +167,21 @@ class FusedDecoder:
         self.blocks = (stack_w("fc_0"), stack_b("fc_0"), stack_w("fc_1"),
                        stack_b("fc_1"), dec.fc_out.weight[0].contiguous(),
                        dec.fc_out.bias)
+        self.bf16 = self.mxu_dtype == torch.bfloat16
+        self.w_image = (bf16_weight_image(self.blocks[0], self.blocks[2])
+                        if self.bf16 and c.device.type == "cuda" else None)
 
     def operands(self, p, rows=None):
+        """The operands of `ops.fused_cbn_decode` for points p: h0 is f32,
+        or bf16 in the bf16 mode (rounded as the kernel would)."""
         pick = (lambda t: t) if rows is None else (lambda t: t[rows])
         z = None if self.z is None else pick(self.z)
-        return (self.decoder.first_layer(p, z).contiguous(),
-                pick(self.scales).contiguous(),
+        h0 = self.decoder.first_layer(
+            p, z, dtype=torch.bfloat16 if self.bf16 else None)
+        return (h0.contiguous(), pick(self.scales).contiguous(),
                 pick(self.shifts).contiguous(), *self.blocks)
 
     def __call__(self, p, rows=None):
         return fused_cbn_decode(*self.operands(p, rows),
-                                mxu_dtype=self.mxu_dtype)
+                                mxu_dtype=self.mxu_dtype,
+                                w_image=self.w_image)

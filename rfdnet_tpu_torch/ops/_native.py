@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("fps", "cbn_decoder")   # csrc/<name>.cu, nvcc
+KERNELS = ("fps", "cbn_decoder", "cbn_decoder_bf16")  # csrc/<name>.cu, nvcc
 HOST_LIBS = ("meshing", "simplify")  # csrc/<name>.cpp, g++
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -137,3 +137,45 @@ def test_mlp_bf16_config_builds_bf16_chains():
     assert model.completion.decoder.fc_p.compute_dtype is None
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert all(b.dtype == torch.float32 for b in model.buffers())
+
+
+def test_low_precision_product_and_its_derivatives_match_jax():
+    """`common.low_precision_product` (the bf16 `Dense`'s product) against
+    JAX's bf16 dot with an f32 result: the product, its gradients (f32
+    products rounded to bf16, within one bf16 rounding: the two sum in
+    other orders) and a second derivative, as refinement takes it."""
+    import jax
+
+    from rfdnet_tpu_torch.models.common import low_precision_product
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 5, 24)).astype(np.float32)
+    w = rng.standard_normal((24, 8)).astype(np.float32)  # flax (in, out)
+    c = rng.standard_normal((2, 5, 8)).astype(np.float32)
+
+    def jprod(x, w):
+        return jnp.dot(x.astype(jnp.bfloat16), w.astype(jnp.bfloat16),
+                       preferred_element_type=jnp.float32)
+
+    def jgrad_norm(x, w):
+        gx = jax.grad(lambda x: jnp.sum(c * jprod(x, w)))(x)
+        return jnp.sum(gx * gx)
+
+    tx = torch.tensor(x, requires_grad=True)
+    tw = torch.tensor(w.T.copy(), requires_grad=True)
+    y = low_precision_product(tx.to(torch.bfloat16), tw.to(torch.bfloat16))
+    assert y.dtype == torch.float32
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jprod(x, w)),
+                               rtol=1e-6, atol=1e-6)
+    gx, gw = torch.autograd.grad((y * torch.tensor(c)).sum(), (tx, tw),
+                                 create_graph=True)
+    jgx, jgw = jax.grad(lambda x, w: jnp.sum(c * jprod(x, w)),
+                        argnums=(0, 1))(x, w)
+    np.testing.assert_allclose(gx.detach().numpy(), np.asarray(jgx),
+                               rtol=1e-2, atol=1e-6)
+    np.testing.assert_allclose(gw.detach().numpy(), np.asarray(jgw).T,
+                               rtol=1e-2, atol=1e-6)
+    ggw, = torch.autograd.grad((gx * gx).sum(), tw)
+    np.testing.assert_allclose(ggw.numpy(),
+                               np.asarray(jax.grad(jgrad_norm, 1)(x, w)).T,
+                               rtol=2e-2, atol=1e-5)
