@@ -6,9 +6,10 @@ It needs one CUDA card and exits nonzero, printing no result, without one.
 Phases, each printing one JSON line; any failure ends the run nonzero:
 
 1. device: the card's name and power limit (`nvidia-smi`), then the
-   CUDA kernels (`nvcc`: FPS, the CBN decoder's f32 and bf16 kernels)
-   and the host libraries (`g++`: the meshing and
-   the QEM simplification) built from `rfdnet_tpu_torch/csrc/` at once, with each kernel instantiation's
+   CUDA kernels (`nvcc`: FPS, the CBN decoder's f32 and bf16 kernels, the
+   prep's depth raster and TSDF fusion) and the host libraries (`g++`:
+   the meshing, the QEM simplification and the KD-tree) built from
+   `rfdnet_tpu_torch/csrc/` at once, with each kernel instantiation's
    registers, spills and static shared memory as `ptxas` reports them
    (every route of `fps_route` must find its one instantiation there,
    with no spill; `fps_resident` adds each resident instantiation's
@@ -101,7 +102,7 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
 11. detection: `configs/iscnet_detection.yaml` (`vote_fps`, no completion)
    at full width, three scenes after a warm-up, with stage times; on 4096
    points the sampling indices and NMS keep mask equal a CPU run's.
-12. tester: three full-width synthetic scenes written in the dataset's
+12. tester: two full-width synthetic scenes written in the dataset's
    on-disk layout (80000 points, 12 objects each, a watertight GT mesh
    each) and a copy of `configs/iscnet_test.yaml` pointing at them (seed
    as in `demo`, `evaluate_mesh_mAP: true`): `rfdnet_tpu_torch.cli.main
@@ -174,13 +175,40 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    the final parameters are reported, not checked (see `phase_ddp`).
    Device ms a step, the gradient all-reduce's ms, sync-BN all-reduces
    a step, launches.
+18. prep: the offline ShapeNet preparation on the 13 checked-in demo
+   meshes (`demo/outputs/scene0549_00/`, one category) and a seeded
+   non-watertight mesh of ~50k faces (open boxes, a sphere without its
+   cap). On two of them at the CLI's full width (100 views of 640 x 640,
+   a 256^3 grid) each kernel against its plain version on the card:
+   pixels whose coverage differs and voxels off by over 1e-6 (each at most
+   1e-4 of the total), the largest depth and TSDF errors, the kernel's ms
+   (CUDA events, 3 launches after a warm-up), the plain version's and the
+   bound (FP64 at 34 TFLOP/s or bytes). Then `python -m
+   rfdnet_tpu_torch.prep.shapenet` (called in-process, `main(argv)`)
+   over all 14 models: exit code 0, one launch of each kernel a model,
+   every output file read back, every watertight mesh closed, every
+   simplified one below its watertight mesh's faces (the faces are
+   printed: the QEM is the JAX package's, which stops above the 5000
+   target on these ~3M-face meshes), each model's stage ms (render,
+   fuse, tetrahedra, sample, containment, simplify); and its CPU route
+   (`--device cpu`) on one model: meshes within half a voxel of the
+   card's, occupancy labels equal on at least 99.9 %.
+   Then `python -m rfdnet_tpu_torch.prep.scannet` (in-process) on a raw
+   ScanNet scene with its Scan2CAD annotation written with numpy
+   (`data.synthetic.write_raw_scan2cad_scene`, ~160k scan points), on the
+   card and with `--device cpu`: exit code 0 both, the votes made on the
+   card, `bbox.pkl` and `scannet_means.npz` equal, `full_scan.npz`'s points
+   and labels equal and its votes equal but for at most 1e-4 of the
+   points (a point within rounding of a box face may fall on the other
+   side; none expected), and no kernel launched.
 Then the `kernels` summary line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `bound_ms` is the least time the card could take for a kernel's work: the
 larger of its bytes (inputs read once, outputs written once) over 3.35
 TB/s and its operations over the peak rate of their type (67 TFLOP/s f32
-outside the tensor cores, 989 TFLOP/s bf16), NVIDIA's H100 SXM figures.
+outside the tensor cores, 989 TFLOP/s bf16, 34 TFLOP/s FP64 outside the
+tensor cores), NVIDIA's H100 SXM figures.
 """
 
 from __future__ import annotations
@@ -188,6 +216,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -195,6 +224,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import torch
 
@@ -232,6 +262,18 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds from CUDA events): for a plain version,
+    timed on the call that is compared with its kernel."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound_ms(nbytes: float, flops: float, peak: float):
@@ -773,34 +815,48 @@ def phase_cbn(model, dev, nb: int = 64, res: int = 32, reps: int = 3):
     return rows
 
 
+# the kernels a path shows in `read_launches` only where it launched them
+OPTIONAL_LAUNCHES = ("cbn_decode_bf16", "render_depth", "tsdf_fuse")
+
+
 def reset_launches() -> None:
     from rfdnet_tpu_torch.ops import furthest_point_sample, fused_cbn_decode
+    from rfdnet_tpu_torch.ops.fusion import render_depth, tsdf_fuse
 
     furthest_point_sample.launches = 0
     fused_cbn_decode.launches = 0
     fused_cbn_decode.launches_bf16 = 0
+    render_depth.launches = 0
+    tsdf_fuse.launches = 0
 
 
 def read_launches() -> dict:
     """The launches since `reset_launches`: FPS, the CBN decoder (both
-    kernels), and under `cbn_decode_bf16`, when there were any, those of
-    the bf16 kernel (so an f32 path's counts read as before, and a bf16
-    launch on it fails its check)."""
+    kernels), and, when there were any, those of the bf16 kernel
+    (`cbn_decode_bf16`) and of the prep's raster and fusion
+    (`render_depth`, `tsdf_fuse`), so that a path's counts read as before
+    and a launch of one of those on a path that should not make it fails
+    its check."""
     from rfdnet_tpu_torch.ops import furthest_point_sample, fused_cbn_decode
+    from rfdnet_tpu_torch.ops.fusion import render_depth, tsdf_fuse
 
     counts = {"fps": furthest_point_sample.launches,
               "cbn_decode": fused_cbn_decode.launches}
-    if fused_cbn_decode.launches_bf16:
-        counts["cbn_decode_bf16"] = fused_cbn_decode.launches_bf16
+    for name, n in (("cbn_decode_bf16", fused_cbn_decode.launches_bf16),
+                    ("render_depth", render_depth.launches),
+                    ("tsdf_fuse", tsdf_fuse.launches)):
+        if n:
+            counts[name] = n
     return counts
 
 
 def launches_between(before: dict, after: dict) -> dict:
-    """The launches from one `read_launches` to a later one, with the bf16
-    kernel's only where it launched."""
+    """The launches from one `read_launches` to a later one, with the
+    optional kernels' only where they launched."""
     diff = {k: after[k] - before.get(k, 0) for k in after}
-    if not diff.get("cbn_decode_bf16"):
-        diff.pop("cbn_decode_bf16", None)
+    for name in OPTIONAL_LAUNCHES:
+        if not diff.get(name):
+            diff.pop(name, None)
     return diff
 
 
@@ -1770,7 +1826,7 @@ def phase_detection(dev, scenes: int = 3, num_points: int = 4096):
     return run["launches"]
 
 
-TESTER_SCENES = 3
+TESTER_SCENES = 2
 
 
 def tester_config(tmp: str, paths: dict, name: str, pairs=()) -> str:
@@ -3090,8 +3146,392 @@ def phase_point_shard(model, data, reps: int = 3):
     return bucketed["off"]["launches"]
 
 
+PREP_MESHES = os.path.join(ROOT, "demo", "outputs", "scene0549_00")
+PREP_CATID = "04379243"  # ShapeNet's table synset: one category folder
+PREP_OPEN = "open_seeded"  # the seeded non-watertight model
+PREP_RES = 256  # the CLI's default --resolution
+# the limits of a kernel against its plain version at full width: the
+# share of pixels whose coverage differs and of voxels off by over 1e-6
+# (a projection index that flips), and the largest depth error where both
+# cover (0 expected: both do the same double operations in the same order)
+PREP_FLIP_SHARE = 1e-4
+PREP_DEPTH_ERR = 1e-6
+# the card's route against the CPU's on one model: watertight meshes
+# within half a voxel, occupancy labels equal on this share
+PREP_VOXEL_TOL = 0.5
+PREP_LABEL_AGREE = 0.999
+# the ScanNet prep's raw scene: points inside each of its 3 CAD boxes and
+# on its floor, ~160k in all, as a ScanNet scan's `_vh_clean_2.ply`
+PREP_SCAN_OBJECT_POINTS = 20_000
+PREP_SCAN_FLOOR_POINTS = 100_000
+FP64_FLOPS = 34e12  # FP64 outside the tensor cores, H100 SXM data sheet
+
+
+def grid_patch(ku: int, kv: int, fn):
+    """A (ku x kv)-quad grid of fn(s, t) over [0, 1]^2: (verts, faces)."""
+    import numpy as np
+
+    s, t = np.meshgrid(np.linspace(0, 1, ku + 1), np.linspace(0, 1, kv + 1),
+                       indexing="ij")
+    verts = fn(s.ravel(), t.ravel())
+    idx = np.arange((ku + 1) * (kv + 1)).reshape(ku + 1, kv + 1)
+    a, b = idx[:-1, :-1].ravel(), idx[1:, :-1].ravel()
+    c, d = idx[1:, 1:].ravel(), idx[:-1, 1:].ravel()
+    faces = np.concatenate([np.stack([a, b, c], 1), np.stack([a, c, d], 1)])
+    return verts, faces
+
+
+def open_mesh(seed: int = SEED, k: int = 30):
+    """A non-watertight mesh of ~50k faces from `seed`: four boxes without
+    their tops (five k x k faces each) and a sphere with a cap cut away
+    (70 x 100 quads), at random places and sizes. Returns (verts, faces)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    parts = []
+    for _ in range(4):
+        lo = rng.uniform(-0.6, 0.1, 3)
+        size = rng.uniform(0.25, 0.5, 3)
+        for axis, side in ((2, 0), (0, 0), (0, 1), (1, 0), (1, 1)):
+            u, v = [a for a in range(3) if a != axis]
+
+            def face(s, t, axis=axis, side=side, u=u, v=v):
+                p = np.empty((len(s), 3))
+                p[:, axis] = lo[axis] + side * size[axis]
+                p[:, u] = lo[u] + s * size[u]
+                p[:, v] = lo[v] + t * size[v]
+                return p
+            parts.append(grid_patch(k, k, face))
+    center, radius = rng.uniform(-0.2, 0.2, 3), 0.3
+
+    def sphere(s, t):
+        theta = 0.6 + s * (np.pi - 0.6)  # the cap above 0.6 rad is cut
+        phi = 2 * np.pi * t
+        return center + radius * np.stack([np.sin(theta) * np.cos(phi),
+                                           np.sin(theta) * np.sin(phi),
+                                           np.cos(theta)], 1)
+    parts.append(grid_patch(70, 100, sphere))
+    verts, faces, base = [], [], 0
+    for v, f in parts:
+        verts.append(v)
+        faces.append(f + base)
+        base += len(v)
+    return np.concatenate(verts), np.concatenate(faces).astype(np.int32)
+
+
+def prep_inputs(in_root: str) -> list:
+    """The prep phase's models under in_root/<catid>/<model>/model.off: the
+    checked-in demo meshes and the seeded open mesh. Returns their names."""
+    import glob
+
+    from rfdnet_tpu_torch.meshing.mesh import TriMesh, write_off
+
+    names = []
+    for path in sorted(glob.glob(os.path.join(PREP_MESHES,
+                                              "proposal_*_mesh.ply"))):
+        name = os.path.basename(path)[:-len("_mesh.ply")]
+        os.makedirs(os.path.join(in_root, PREP_CATID, name))
+        TriMesh.load(path).export(
+            os.path.join(in_root, PREP_CATID, name, "model.off"))
+        names.append(name)
+    os.makedirs(os.path.join(in_root, PREP_CATID, PREP_OPEN))
+    write_off(os.path.join(in_root, PREP_CATID, PREP_OPEN, "model.off"),
+              *open_mesh())
+    return names + [PREP_OPEN]
+
+
+def prep_kernel_rows(name: str, mesh, dev, reps: int = 3) -> dict:
+    """Both kernels against their plain versions (on the card) on one
+    model at the CLI's full width: its normalised mesh rendered from
+    every view, then those depths fused at the default resolution."""
+    import numpy as np
+
+    from rfdnet_tpu_torch.ops import fusion
+    from rfdnet_tpu_torch.prep import shapenet as sn
+
+    verts = np.asarray(mesh.vertices)
+    center = (verts.max(0) + verts.min(0)) / 2.0
+    scale = (verts.max(0) - verts.min(0)).max() / (1 - sn.PADDING)
+    poses = np.stack([sn.look_at_pose(e)
+                      for e in sn.fibonacci_views(sn.N_VIEWS) * 2.0])
+    v = torch.from_numpy((verts - center) / scale).to(dev)
+    t = torch.from_numpy(np.ascontiguousarray(mesh.faces, np.int32)).to(dev)
+    p = torch.from_numpy(poses).to(dev)
+    cam = (sn.FOCAL, sn.IMAGE / 2.0, sn.IMAGE / 2.0)
+    view = cam + (sn.IMAGE, sn.IMAGE)
+    depth = fusion.render_depth(v, t, p, *view)
+    work = {}
+    plain, plain_ms = timed_once(
+        lambda: fusion.render_depth_plain(v, t, p, *view, work=work))
+    both = (depth > 0) & (plain > 0)
+    render = dict(
+        model=name, views=sn.N_VIEWS, width=sn.IMAGE, height=sn.IMAGE,
+        triangles=len(t), vertices=len(v), work=work,
+        covered_share=float((depth > 0).float().mean()),
+        coverage_differs=int(((depth > 0) != (plain > 0)).sum()),
+        max_abs_err=float((depth - plain).abs()[both].max()),
+        ms=cuda_ms(lambda: fusion.render_depth(v, t, p, *view), reps),
+        plain_ms=plain_ms, library_ms=None)
+    # the FP64 operations this input needs: each vertex to camera space a
+    # view (18), each drawn triangle's projection, determinant and inverse
+    # depths (26), each pixel of its box's weights (20), each covered
+    # pixel's depth (6); the bytes: mesh and poses in, the depths out
+    render["bound_ms"], render["bound_by"] = bound_ms(
+        v.numel() * 8 + t.numel() * 4 + p.numel() * 8 + depth.numel() * 4,
+        18 * len(v) * sn.N_VIEWS + 26 * work["drawn"]
+        + 20 * work["box_pixels"] + 6 * work["covered"], FP64_FLOPS)
+    pixels = depth.numel()
+    res = PREP_RES
+    fuse_args = (*cam, res, (-0.5, -0.5, -0.5, 0.5, 0.5, 0.5), 10.0 / res)
+    tsdf = fusion.tsdf_fuse(depth, p, *fuse_args)
+    work = {}
+    tplain, tplain_ms = timed_once(
+        lambda: fusion.tsdf_fuse_plain(depth, p, *fuse_args, work=work))
+    diff = (tsdf - tplain).abs()
+    fuse = dict(
+        model=name, views=sn.N_VIEWS, res=res, work=work,
+        voxels_over_1e6=int((diff > 1e-6).sum()),
+        max_abs_err=float(diff.max()),
+        ms=cuda_ms(lambda: fusion.tsdf_fuse(depth, p, *fuse_args), reps),
+        plain_ms=tplain_ms, library_ms=None)
+    # each voxel's centre and mean (13), each voxel-view's camera z (6),
+    # in front of the camera its x, y and pixel (18), with a depth in the
+    # image its sdf (2), averaged (3); the bytes: depths and poses in, the
+    # grid out
+    fuse["bound_ms"], fuse["bound_by"] = bound_ms(
+        depth.numel() * 4 + p.numel() * 8 + tsdf.numel() * 4,
+        13 * tsdf.numel() + 6 * work["voxel_views"] + 18 * work["in_front"]
+        + 2 * work["sampled"] + 3 * work["averaged"], FP64_FLOPS)
+    check(render["coverage_differs"] <= PREP_FLIP_SHARE * pixels
+          and render["max_abs_err"] <= PREP_DEPTH_ERR,
+          f"prep: render_depth against its plain version {render}")
+    check(fuse["voxels_over_1e6"] <= PREP_FLIP_SHARE * tsdf.numel(),
+          f"prep: tsdf_fuse against its plain version {fuse}")
+    return dict(render_depth=render, tsdf_fuse=fuse)
+
+
+def prep_outputs(out_root: str, name: str, keep_mesh: bool = False) -> dict:
+    """One model's files read back and checked: its watertight mesh's open
+    edges and faces, its simplified mesh's faces, its occupancy labels and
+    scale, and (`keep_mesh`) the watertight mesh itself."""
+    import numpy as np
+
+    from rfdnet_tpu_torch.data.binvox import read_binvox
+    from rfdnet_tpu_torch.meshing.mesh import TriMesh
+
+    def path(sub, ext):
+        return os.path.join(out_root, sub, PREP_CATID, name + ext)
+
+    pc = np.load(path("pointcloud", ".npz"))
+    pts = np.load(path("point", ".npz"))
+    occ = np.unpackbits(pts["occupancies"])[:len(pts["points"])].astype(bool)
+    with open(path("voxel/16", ".binvox"), "rb") as f:
+        vox = read_binvox(f)
+    wt = TriMesh.load(path("watertight_scaled", ".off"))
+    simple = TriMesh.load(path("watertight_scaled_simplified", ".off"))
+    check(pc["points"].shape == (100000, 3)
+          and np.isfinite(pc["points"]).all()
+          and pts["points"].shape == (100000, 3)
+          and np.isfinite(pts["points"]).all() and 0 < occ.mean() < 1
+          and vox.dims == [16, 16, 16] and vox.data.any()
+          and len(wt.faces) > 0 and len(simple.faces) > 0,
+          f"prep: {name}'s files: pointcloud {pc['points'].shape}, points "
+          f"{pts['points'].shape} occupied {occ.mean()}, voxels "
+          f"{vox.dims} {int(vox.data.sum())}, faces {len(wt.faces)} / "
+          f"{len(simple.faces)}")
+    return dict(open_edges=closed_meshes([wt]), faces=len(wt.faces),
+                simplified_faces=len(simple.faces), occupancy=occ,
+                scale=float(pts["scale"]),
+                watertight=wt if keep_mesh else None)
+
+
+def mesh_distance_voxels(a, b, voxel: float) -> float:
+    """The largest distance between two meshes' vertices in voxels: vertex
+    by vertex where their faces are equal, else each vertex's nearest one
+    of the other mesh, both ways."""
+    import numpy as np
+
+    from rfdnet_tpu_torch.meshing.native import KDTree
+
+    if np.array_equal(a.faces, b.faces) and a.vertices.shape == \
+            b.vertices.shape:
+        return float(np.abs(a.vertices - b.vertices).max()) / voxel
+    d_ab, _ = KDTree(b.vertices).query(a.vertices)
+    d_ba, _ = KDTree(a.vertices).query(b.vertices)
+    return max(float(d_ab.max()), float(d_ba.max())) / voxel
+
+
+def phase_prep(dev, reps: int = 3) -> dict:
+    """The offline ShapeNet preparation (see the module docstring): both
+    kernels against their plain versions at full width on two models, the
+    CLI on the card over all of them (every file read back, watertight
+    meshes closed, simplified ones below them), and on the CPU over one.
+    Returns the kernel rows and the CLI run's launches."""
+    from rfdnet_tpu_torch.meshing.mesh import TriMesh
+    from rfdnet_tpu_torch.prep import shapenet
+
+    with tempfile.TemporaryDirectory() as tmp:
+        in_root = os.path.join(tmp, "in")
+        names = prep_inputs(in_root)
+        kernel_rows = {
+            name: prep_kernel_rows(name, TriMesh.load(os.path.join(
+                in_root, PREP_CATID, name, "model.off")), dev, reps)
+            for name in (names[0], PREP_OPEN)}
+        torch.cuda.empty_cache()
+        out_root = os.path.join(tmp, "out")
+        reset_launches()
+        t0 = time.perf_counter()
+        rc, printed = run_logged(lambda: shapenet.main(
+            ["--in_root", in_root, "--out_root", out_root]))
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        results = [json.loads(line) for line in printed.splitlines()
+                   if line.startswith('{"catid"')]
+        check(rc == 0 and all(r["ok"] for r in results)
+              and [r["model"] for r in results] == sorted(names),
+              f"prep: the CLI's rc {rc}, models "
+              f"{[(r['model'], r['ok']) for r in results]}")
+        # the files read back in parallel: each watertight mesh is an OFF
+        # of ~3M faces, seconds of parsing
+        with ProcessPoolExecutor(
+                8, mp_context=multiprocessing.get_context("spawn")) as pool:
+            outputs = dict(zip(names, pool.map(
+                prep_outputs, [out_root] * len(names), names,
+                [name == names[0] for name in names])))
+        open_edges = sum(o["open_edges"] for o in outputs.values())
+        # one model again through the CLI's CPU route
+        one = os.path.join(tmp, "in_one")
+        shutil.copytree(os.path.join(in_root, PREP_CATID, names[0]),
+                        os.path.join(one, PREP_CATID, names[0]))
+        t1 = time.perf_counter()
+        cpu_results = shapenet.run(one, os.path.join(tmp, "out_cpu"),
+                                   device="cpu")
+        cpu_s = time.perf_counter() - t1
+        check(cpu_results[0][2], f"prep: the CPU route {cpu_results}")
+        cpu = prep_outputs(os.path.join(tmp, "out_cpu"), names[0], True)
+    card = outputs[names[0]]
+    voxel = card["scale"] / PREP_RES  # a voxel, in the mesh's frame
+    vs_cpu = dict(
+        model=names[0],
+        mesh_voxels=mesh_distance_voxels(card["watertight"],
+                                         cpu["watertight"], voxel),
+        faces_equal=bool(len(card["watertight"].faces) == len(
+            cpu["watertight"].faces) and (card["watertight"].faces
+                                          == cpu["watertight"].faces).all()),
+        labels_agree=float((card["occupancy"] == cpu["occupancy"]).mean()),
+        cpu_s=cpu_s)
+    stage_ms = {r["model"]: r["stage_ms"] for r in results}
+    row = dict(
+        models=len(names), wall_s=wall_s, launches=launches,
+        open_edges=open_edges,
+        faces={m: o["faces"] for m, o in outputs.items()},
+        simplified_faces={m: o["simplified_faces"]
+                          for m, o in outputs.items()},
+        stage_ms=stage_ms,
+        stage_ms_mean={s: sum(ms[s] for ms in stage_ms.values()) / len(names)
+                       for s in (*shapenet.STAGES, "total")},
+        vs_cpu=vs_cpu, kernels=kernel_rows,
+        printed_lines=len(printed.splitlines()))
+    emit(phase="prep", **row)
+    check(launches == {"fps": 0, "cbn_decode": 0, "render_depth": len(names),
+                       "tsdf_fuse": len(names)}, f"prep: launches {launches}")
+    check(open_edges == 0, f"prep: {open_edges} open edges")
+    check(all(0 < row["simplified_faces"][m] < row["faces"][m]
+              for m in names),
+          f"prep: simplified faces {row['simplified_faces']}")
+    check(vs_cpu["mesh_voxels"] <= PREP_VOXEL_TOL
+          and vs_cpu["labels_agree"] >= PREP_LABEL_AGREE,
+          f"prep: the card against the CPU {vs_cpu}")
+    return dict(kernels=kernel_rows, launches=launches, models=len(names))
+
+
+def read_scannet_prep(out_root: str, scene: str) -> dict:
+    """The ScanNet prep's files of one scene and its class mean sizes."""
+    import pickle
+
+    import numpy as np
+
+    with open(os.path.join(out_root, scene, "bbox.pkl"), "rb") as f:
+        boxes = pickle.load(f)
+    scan = np.load(os.path.join(out_root, scene, "full_scan.npz"))
+    means = np.load(os.path.join(out_root, "scannet_means.npz"))["arr_0"]
+    return dict(boxes=boxes, scan={k: scan[k] for k in scan.files},
+                means=means)
+
+
+def phase_prep_scannet() -> dict:
+    """The ScanNet + Scan2CAD preparation (see the module docstring) on
+    the card (its default device) and on the CPU. Returns the card run's
+    launches."""
+    import numpy as np
+
+    from rfdnet_tpu_torch.data.synthetic import (
+        RAW_SCENE,
+        write_raw_scan2cad_scene,
+    )
+    from rfdnet_tpu_torch.prep import scannet
+
+    vote_devices = set()
+    accumulate = scannet.accumulate_votes
+
+    def seen(box3D, vertices, *rest):  # the device the votes are made on
+        vote_devices.add(vertices.device.type)
+        return accumulate(box3D, vertices, *rest)
+
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "raw")
+        _, paths = write_raw_scan2cad_scene(
+            raw, object_points=PREP_SCAN_OBJECT_POINTS,
+            floor_points=PREP_SCAN_FLOOR_POINTS)
+        scannet.accumulate_votes = seen
+        try:
+            for route, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+                out_root = os.path.join(tmp, route)
+                argv = ["--scan2cad", os.path.join(raw, "scan2cad.json"),
+                        "--scans_root", paths["scans"], "--shapenet_root",
+                        paths["shapenet"], "--label_tsv", paths["tsv"],
+                        "--out_root", out_root, *extra]
+                if route == "card":
+                    reset_launches()
+                t0 = time.perf_counter()
+                rc, _ = run_logged(lambda: scannet.main(argv))
+                seconds[route] = time.perf_counter() - t0
+                if route == "card":
+                    launches, card_devices = read_launches(), set(vote_devices)
+                check(rc == 0, f"prep_scannet: the {route} run's rc {rc}")
+                out[route] = read_scannet_prep(out_root, RAW_SCENE)
+        finally:
+            scannet.accumulate_votes = accumulate
+    card, cpu = out["card"], out["cpu"]
+    points = len(card["scan"]["mesh_vertices"])
+    boxes_equal = len(card["boxes"]) == len(cpu["boxes"]) and all(
+        sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in zip(card["boxes"], cpu["boxes"]))
+    votes_differ = int((card["scan"]["point_votes"]
+                        != cpu["scan"]["point_votes"]).any(axis=1).sum())
+    row = dict(
+        points=points, boxes=len(card["boxes"]), vote_devices=sorted(
+            card_devices), voted_points=int(
+            card["scan"]["point_votes"][:, 0].sum()),
+        boxes_equal=boxes_equal,
+        means_equal=bool(np.array_equal(card["means"], cpu["means"])),
+        scan_equal={k: bool(np.array_equal(card["scan"][k], cpu["scan"][k]))
+                    for k in ("mesh_vertices", "instance_labels")},
+        votes_differ=votes_differ, seconds=seconds, launches=launches)
+    emit(phase="prep_scannet", **row)
+    check(card_devices == {"cuda"} and row["boxes"] == 2
+          and row["voted_points"] > 0 and boxes_equal and row["means_equal"]
+          and all(row["scan_equal"].values())
+          and votes_differ <= PREP_FLIP_SHARE * points,
+          f"prep_scannet: the card against the CPU {row}")
+    check(launches == {"fps": 0, "cbn_decode": 0},
+          f"prep_scannet: launches {launches}")
+    return launches
+
+
 def kernel_summary(fps_rows, fps_batch, fps_flag_off, cbn_rows, launches,
-                   test_cbn, mise_cbn):
+                   test_cbn, mise_cbn, prep):
     """One entry per kernel. `launches` and the times are the main path's
     (to the grids): FPS summed over its five calls there, the CBN decoder
     in the test config's f32 mode; `launches_by_path` has every driven
@@ -3118,7 +3558,12 @@ def kernel_summary(fps_rows, fps_batch, fps_flag_off, cbn_rows, launches,
     (`decoder_bf16_demo`; `decoder_bf16_serve_b8` a served batch,
     `decoder_bf16_tester_pallas` a Tester scene at `decoder_impl:
     pallas`; 0 on the f32 paths), its times at 64 x 32768, and `shapes`
-    at every shape of the paths, on their captured operands."""
+    at every shape of the paths, on their captured operands. The
+    `render_depth` and `tsdf_fuse` entries are the prep path's (`prep`:
+    the CLI over `models` models, one launch of each a model; 0 on every
+    other path, the ScanNet prep's `prep_scannet` among them): times,
+    errors and bounds at full width on the first demo mesh, and `shapes`
+    on both models of the phase."""
     f32, bf16 = cbn_rows["float32"], cbn_rows["bfloat16"]
     main = [r for r in fps_rows if r["name"] != "vote_fps"]
     detection = [r for r in fps_rows if r["name"] != "seed_fps"]
@@ -3183,7 +3628,26 @@ def kernel_summary(fps_rows, fps_batch, fps_flag_off, cbn_rows, launches,
                  "mistake_differ_share", "plain_f32_differ_share", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")}
                  for name, row in CBN_BF16_ROWS.items()}),
+        *(prep_entry(name, prep, launches) for name in (
+            "render_depth", "tsdf_fuse")),
     ]
+
+
+def prep_entry(name: str, prep: dict, launches: dict) -> dict:
+    """The summary entry of one of the prep path's kernels."""
+    replaces = {"render_depth": "rfdnet_tpu/meshing/src/prep.cpp:310",
+                "tsdf_fuse": "rfdnet_tpu/meshing/src/prep.cpp:360"}[name]
+    rows = {model: r[name] for model, r in prep["kernels"].items()}
+    first = next(iter(rows.values()))
+    return dict(
+        name=name, route="cuda", source=f"rfdnet_tpu_torch/csrc/{name}.cu",
+        replaces=replaces, launches=launches["prep"][name],
+        launches_by_path={path: counts.get(name, 0)
+                          for path, counts in launches.items()},
+        models=prep["models"], max_abs_err=first["max_abs_err"],
+        ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+        library_ms=None, shapes=rows)
 
 
 def main() -> int:
@@ -3255,11 +3719,16 @@ def main() -> int:
     done("train")
     launches["ddp_train"], launches["ddp_val"] = phase_ddp(dev)
     done("ddp")
+    prep = phase_prep(dev)
+    launches["prep"] = prep["launches"]
+    done("prep")
+    launches["prep_scannet"] = phase_prep_scannet()
+    done("prep_scannet")
     emit(phase="timing", seconds=seconds, total_s=sum(seconds.values()))
 
     print(json.dumps({"kernels": kernel_summary(
         fps_rows, fps_batch, fps_flag_off, cbn_rows, launches, test_cbn,
-        mise_cbn)}), flush=True)
+        mise_cbn, prep)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

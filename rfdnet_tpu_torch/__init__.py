@@ -5,8 +5,10 @@ The package mirrors `rfdnet_tpu`'s module layout (`ops/fps.py`,
 `models/pointnet2.py`, `train/loop.py`, ...) and its channels-last tensor
 layouts, so each function has a counterpart of the same name there. The
 two Pallas kernels of the JAX package are hand-written CUDA C++ for Hopper
-(`csrc/`); every other op is plain PyTorch. A model trains in torch's
-train mode (`model.train()`); the fused decoder kernel serves eval mode.
+(`csrc/`), as are the offline preparation's depth raster and TSDF fusion,
+which the JAX package runs on the host (`prep/`); every other op is plain
+PyTorch. A model trains in torch's train mode (`model.train()`); the fused
+decoder kernel serves eval mode.
 
 Numerics: float32 matrix products and convolutions run in full float32
 (TF32 off), which the parity tests against `rfdnet_tpu` rely on.

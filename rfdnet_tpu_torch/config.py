@@ -46,6 +46,45 @@ CLASS2TYPE = dict(enumerate((
 TYPE2CLASS = {name: c for c, name in CLASS2TYPE.items()}
 SHAPENETID2CLASS = {cid: c for c, cid in enumerate(CLASS_IDS)}
 
+# ShapeNet's class names by class index, and the synset id (without its
+# leading 0) of each name: what the offline preparation maps a Scan2CAD
+# model's category through
+SHAPENETCLASSES = (
+    "void",
+    "table", "jar", "skateboard", "car", "bottle",
+    "tower", "chair", "bookshelf", "camera", "airplane",
+    "laptop", "basket", "sofa", "knife", "can",
+    "rifle", "train", "pillow", "lamp", "trash_bin",
+    "mailbox", "watercraft", "motorbike", "dishwasher", "bench",
+    "pistol", "rocket", "loudspeaker", "file cabinet", "bag",
+    "cabinet", "bed", "birdhouse", "display", "piano",
+    "earphone", "telephone", "stove", "microphone", "bus",
+    "mug", "remote", "bathtub", "bowl", "keyboard",
+    "guitar", "washer", "bicycle", "faucet", "printer",
+    "cap", "clock", "helmet", "flowerpot", "microwaves",
+)
+SHAPENET_ID_MAP = {
+    "4379243": "table", "3593526": "jar", "4225987": "skateboard",
+    "2958343": "car", "2876657": "bottle", "4460130": "tower",
+    "3001627": "chair", "2871439": "bookshelf", "2942699": "camera",
+    "2691156": "airplane", "3642806": "laptop", "2801938": "basket",
+    "4256520": "sofa", "3624134": "knife", "2946921": "can",
+    "4090263": "rifle", "4468005": "train", "3938244": "pillow",
+    "3636649": "lamp", "2747177": "trash_bin", "3710193": "mailbox",
+    "4530566": "watercraft", "3790512": "motorbike", "3207941": "dishwasher",
+    "2828884": "bench", "3948459": "pistol", "4099429": "rocket",
+    "3691459": "loudspeaker", "3337140": "file cabinet", "2773838": "bag",
+    "2933112": "cabinet", "2818832": "bed", "2843684": "birdhouse",
+    "3211117": "display", "3928116": "piano", "3261776": "earphone",
+    "4401088": "telephone", "4330267": "stove", "3759954": "microphone",
+    "2924116": "bus", "3797390": "mug", "4074963": "remote",
+    "2808440": "bathtub", "2880940": "bowl", "3085013": "keyboard",
+    "3467517": "guitar", "4554684": "washer", "2834778": "bicycle",
+    "3325088": "faucet", "4004475": "printer", "2954340": "cap",
+    "3046257": "clock", "3513137": "helmet", "3991062": "flowerpot",
+    "3761084": "microwaves",
+}
+
 
 def angle2class(angle):
     """Continuous angle(s) -> (heading bin, residual), as

@@ -1,11 +1,11 @@
 // Host meshing of rfdnet_tpu_torch: the port's own copy of the marching
 // cubes, the marching tetrahedra, the MISE octree, the sparse-replay
-// marching cubes and the surface voxelizer of
-// rfdnet_tpu/meshing/src/meshing.cpp (same case table, scan
-// order and vertex numbering, so both libraries give identical arrays on
-// identical inputs when built with the same flags). Plain C interface,
-// loaded with ctypes (rfdnet_tpu_torch/meshing/native.py). Vertices come
-// back in grid-index space, welded along shared edges.
+// marching cubes, the surface voxelizer and the ray-parity containment
+// test `points_in_mesh` of rfdnet_tpu/meshing/src/meshing.cpp (same case
+// table, scan order and vertex numbering, so both libraries give identical
+// arrays on identical inputs when built with the same flags). Plain C
+// interface, loaded with ctypes (rfdnet_tpu_torch/meshing/native.py).
+// Vertices come back in grid-index space, welded along shared edges.
 
 #include <algorithm>
 #include <atomic>
@@ -996,6 +996,74 @@ void fill_interior(const uint8_t *surface, int nx, int ny, int nz,
   }
   for (size_t i = 0; i < n; ++i)
     interior[i] = (!outside[i] && !surface[i]) ? 1 : 0;
+}
+
+// Point-in-mesh by +z ray-crossing parity, with a 2D cell grid over (x, y)
+// of max(8, sqrt(nt)) cells a side (at most 512) holding each triangle's
+// (x, y) box. The point is jittered by (3.1e-7, 1.7e-7) so that a ray
+// through a lattice-aligned point misses shared edges and vertices, which
+// would otherwise count one crossing twice.
+void points_in_mesh(const double *verts, int nv, const int *tris, int nt,
+                    const double *points, int np, uint8_t *out) {
+  (void)nv;
+  double mn[2] = {1e30, 1e30}, mx[2] = {-1e30, -1e30};
+  for (int t = 0; t < nt; ++t)
+    for (int i = 0; i < 3; ++i) {
+      const double *p = verts + 3 * tris[3 * t + i];
+      for (int j = 0; j < 2; ++j) {
+        mn[j] = std::min(mn[j], p[j]);
+        mx[j] = std::max(mx[j], p[j]);
+      }
+    }
+  int res = std::max(8, (int)std::sqrt((double)nt));
+  res = std::min(res, 512);
+  double sx = (mx[0] - mn[0]) / res + 1e-12, sy = (mx[1] - mn[1]) / res + 1e-12;
+  std::vector<std::vector<int>> cells((size_t)res * res);
+  auto cell_of = [&](double x, double y, int &cx, int &cy) {
+    cx = (int)((x - mn[0]) / sx);
+    cy = (int)((y - mn[1]) / sy);
+  };
+  for (int t = 0; t < nt; ++t) {
+    double tmn[2] = {1e30, 1e30}, tmx[2] = {-1e30, -1e30};
+    for (int i = 0; i < 3; ++i) {
+      const double *p = verts + 3 * tris[3 * t + i];
+      for (int j = 0; j < 2; ++j) {
+        tmn[j] = std::min(tmn[j], p[j]);
+        tmx[j] = std::max(tmx[j], p[j]);
+      }
+    }
+    int c0x, c0y, c1x, c1y;
+    cell_of(tmn[0], tmn[1], c0x, c0y);
+    cell_of(tmx[0], tmx[1], c1x, c1y);
+    for (int cx = std::max(0, c0x); cx <= std::min(res - 1, c1x); ++cx)
+      for (int cy = std::max(0, c0y); cy <= std::min(res - 1, c1y); ++cy)
+        cells[(size_t)cx * res + cy].push_back(t);
+  }
+  for (int p = 0; p < np; ++p) {
+    double x = points[3 * p] + 3.1e-7, y = points[3 * p + 1] + 1.7e-7,
+           z = points[3 * p + 2];
+    out[p] = 0;
+    if (x < mn[0] || x > mx[0] || y < mn[1] || y > mx[1]) continue;
+    int cx, cy;
+    cell_of(x, y, cx, cy);
+    if (cx < 0 || cy < 0 || cx >= res || cy >= res) continue;
+    int crossings = 0;
+    for (int t : cells[(size_t)cx * res + cy]) {
+      const double *a = verts + 3 * tris[3 * t];
+      const double *b = verts + 3 * tris[3 * t + 1];
+      const double *c = verts + 3 * tris[3 * t + 2];
+      // 2D barycentric test in (x, y)
+      double d = (b[1] - c[1]) * (a[0] - c[0]) + (c[0] - b[0]) * (a[1] - c[1]);
+      if (std::fabs(d) < 1e-30) continue;
+      double l1 = ((b[1] - c[1]) * (x - c[0]) + (c[0] - b[0]) * (y - c[1])) / d;
+      double l2 = ((c[1] - a[1]) * (x - c[0]) + (a[0] - c[0]) * (y - c[1])) / d;
+      double l3 = 1.0 - l1 - l2;
+      if (l1 < 0 || l2 < 0 || l3 < 0) continue;
+      double tz = l1 * a[2] + l2 * b[2] + l3 * c[2];
+      if (tz > z) crossings++;
+    }
+    out[p] = (uint8_t)(crossings & 1);
+  }
 }
 
 void *mise_create(int resolution_0, int depth, double threshold) {

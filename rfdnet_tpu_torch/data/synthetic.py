@@ -6,7 +6,8 @@ MAX_NUM_OBJ-padded box labels, per-point votes and instance labels, and
 per-object occupancy point sets and 16^3 voxels. `write_scannet_scenes`
 writes such scenes in the layout that `data.scannet.ScanNetDataset`
 reads, with a watertight mesh of each object for the mesh mAP, so that the
-test path runs from files without the real datasets.
+test path runs from files without the real datasets. `write_raw_scan2cad_scene`
+writes the raw input of the ScanNet preparation (`prep.scannet`).
 """
 
 from __future__ import annotations
@@ -264,3 +265,115 @@ def write_scannet_scenes(root: str, num_scenes: int, seed: int = 0,
                   "w") as f:
             json.dump(entries, f)
     return {"split": split_dir, "shapenet_path": shapenet}
+
+
+RAW_SCENE = "scene0000_00"
+# (synset, model id, Scan2CAD translation, rotation, scale) of the raw
+# scene's CAD models: a chair and a table (detection classes) and an
+# airplane (not one: the preparation skips it)
+RAW_CADS = (
+    ("03001627", "chair0", [1.0, 0.5, 0.4], [0.70710678, 0.70710678, 0, 0],
+     [0.5, 0.9, 0.5]),
+    ("04379243", "table0", [-0.8, -0.6, 0.35], [0.65328148, 0.65328148,
+                                                0.27059805, 0.27059805],
+     [1.2, 0.7, 0.8]),
+    ("02691156", "plane0", [0.0, 1.5, 1.0], [1, 0, 0, 0], [0.3, 0.3, 0.3]),
+)
+RAW_SCAN_TRS = ([0.3, -0.2, 0.0], [0.98480775, 0, 0, 0.17364818],
+                [1, 1, 1])
+
+
+def _write_scan_ply(path: str, xyz, rgb) -> None:
+    """A binary PLY of float xyz and uchar rgba vertices, as ScanNet's
+    `_vh_clean_2.ply` (without its faces)."""
+    head = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(xyz)}"
+            "\nproperty float x\nproperty float y\nproperty float z\n"
+            "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+            "property uchar alpha\nend_header\n")
+    rec = np.empty(len(xyz),
+                   dtype=[("xyz", "<f4", (3,)), ("rgba", "u1", (4,))])
+    rec["xyz"] = xyz
+    rec["rgba"][:, :3] = rgb
+    rec["rgba"][:, 3] = 255
+    with open(path, "wb") as f:
+        f.write(head.encode() + rec.tobytes())
+
+
+def write_raw_scan2cad_scene(root: str, seed: int = 0,
+                             object_points: int = 400,
+                             floor_points: int = 500):
+    """The raw files of one ScanNet scene with its Scan2CAD annotation
+    under `root`: `scans/<scene>/` (the scan's PLY, aggregation, segments
+    and meta files; `object_points` points inside each CAD model's box and
+    `floor_points` on the floor), a CAD `.obj` of each model under
+    `shapenet/`, `labels.tsv`, `splits/` and `scan2cad.json`. Returns
+    (the annotation, {scans, shapenet, tsv, splits}: their paths)."""
+    from ..prep.scannet import make_M_from_tqs
+
+    rng = np.random.RandomState(seed)
+    scans, shapenet = os.path.join(root, "scans"), os.path.join(root,
+                                                                "shapenet")
+    folder = os.path.join(scans, RAW_SCENE)
+    os.makedirs(folder)
+    a = np.deg2rad(30.0)
+    axis_align = np.eye(4)
+    axis_align[:3, :3] = [[np.cos(a), -np.sin(a), 0],
+                          [np.sin(a), np.cos(a), 0], [0, 0, 1]]
+    axis_align[:3, 3] = [0.5, -1.0, 0.0]
+    M_scan = make_M_from_tqs(*RAW_SCAN_TRS)
+    annotation = {"id_scan": RAW_SCENE,
+                  "trs": dict(zip(("translation", "rotation", "scale"),
+                                  RAW_SCAN_TRS)),
+                  "aligned_models": []}
+    aligned, segs, groups = [], [], []
+    for k, (catid, cid, t, q, s) in enumerate(RAW_CADS):
+        # the CAD model: a cloud of a box in ShapeNet's frame (y up)
+        local = rng.uniform(-0.5, 0.5, (300, 3)) * [0.8, 1.0, 0.6]
+        model_dir = os.path.join(shapenet, catid, cid, "models")
+        os.makedirs(model_dir)
+        with open(os.path.join(model_dir, "model_normalized.obj"), "w") as f:
+            f.writelines(f"v {x} {y} {z}\n" for x, y, z in local)
+            f.write("f 1 2 3\n")
+        annotation["aligned_models"].append(
+            {"catid_cad": catid, "id_cad": cid,
+             "trs": {"translation": t, "rotation": q, "scale": s}})
+        # the scan's points of this object: the CAD placed in the aligned
+        # frame, shrunk a little so that they lie inside its box
+        T = axis_align @ np.linalg.inv(M_scan) @ make_M_from_tqs(t, q, s)
+        inner = rng.uniform(-0.45, 0.45, (object_points, 3)) * [0.8, 1.0,
+                                                                 0.6]
+        aligned.append((np.c_[inner, np.ones(len(inner))] @ T.T)[:, :3])
+        segs += [2 * k + (i % 2) for i in range(len(inner))]
+        groups.append({"objectId": k, "label": ("chair", "table", "toy")[k],
+                       "segments": [2 * k, 2 * k + 1]})
+    floor = np.c_[rng.uniform(-2, 2, (floor_points, 2)),
+                  np.zeros(floor_points)]
+    aligned.append(floor)
+    segs += [99] * len(floor)
+    aligned = np.concatenate(aligned)
+    raw = (np.c_[aligned, np.ones(len(aligned))] @ np.linalg.inv(
+        axis_align).T)[:, :3]
+    _write_scan_ply(os.path.join(folder, f"{RAW_SCENE}_vh_clean_2.ply"), raw,
+                    rng.randint(0, 256, (len(raw), 3)))
+    with open(os.path.join(folder, f"{RAW_SCENE}.aggregation.json"),
+              "w") as f:
+        json.dump({"segGroups": groups}, f)
+    with open(os.path.join(
+            folder, f"{RAW_SCENE}_vh_clean_2.0.010000.segs.json"), "w") as f:
+        json.dump({"segIndices": segs}, f)
+    with open(os.path.join(folder, f"{RAW_SCENE}.txt"), "w") as f:
+        f.write("axisAlignment = " + " ".join(
+            repr(float(x)) for x in axis_align.ravel()) + "\n")
+    tsv = os.path.join(root, "labels.tsv")
+    with open(tsv, "w") as f:
+        f.write("raw_category\tnyu40id\nchair\t5\ntable\t7\ntoy\tx\n")
+    splits = os.path.join(root, "splits")
+    os.makedirs(splits)
+    with open(os.path.join(splits, "scannetv2_train.txt"), "w") as f:
+        f.write(f"{RAW_SCENE}\nscene0001_00\n")
+    with open(os.path.join(splits, "scannetv2_val.txt"), "w") as f:
+        f.write("scene0002_00\n")
+    with open(os.path.join(root, "scan2cad.json"), "w") as f:
+        json.dump([annotation], f)
+    return annotation, dict(scans=scans, shapenet=shapenet, tsv=tsv,
+                            splits=splits)

@@ -135,13 +135,15 @@ def read_ply(path):
 
 
 def write_off(path, vertices, faces):
+    """ASCII OFF, each coordinate in its shortest round-trip form (as
+    `str` gives it for a numpy float64 and for a Python float alike)."""
+    vertices = np.asarray(vertices, dtype=np.float64).reshape(-1, 3)
+    faces = np.asarray(faces).reshape(-1, 3)
     with open(path, "w") as f:
         f.write("OFF\n")
         f.write(f"{len(vertices)} {len(faces)} 0\n")
-        for v in np.asarray(vertices):
-            f.write(f"{v[0]} {v[1]} {v[2]}\n")
-        for face in np.asarray(faces):
-            f.write(f"3 {face[0]} {face[1]} {face[2]}\n")
+        f.writelines(f"{a} {b} {c}\n" for a, b, c in vertices.tolist())
+        f.writelines(f"3 {a} {b} {c}\n" for a, b, c in faces.tolist())
 
 
 def read_off(path):
@@ -158,6 +160,11 @@ def read_off(path):
         n_vert, 3
     )
     idx += 3 * n_vert
+    rest = tokens[idx : idx + 4 * n_face]
+    if len(rest) == 4 * n_face and all(n == "3" for n in rest[::4]):
+        # all triangles: one conversion for the whole block
+        quads = np.array(rest, dtype=np.int64).reshape(n_face, 4)
+        return verts, quads[:, 1:].astype(np.int32)
     faces = []
     for _ in range(n_face):
         n = int(tokens[idx])

@@ -3,11 +3,14 @@
 Counterpart of `rfdnet_tpu/meshing/native.py`: marching cubes and
 marching tetrahedra over dense grids, the QEM simplification (a library
 of its own, `csrc/simplify.cpp`), the MISE octree (`MiseNative`), marching cubes straight from the
-device octree's sparse outputs (`mise_marching_cubes(_batch)`), and the
-surface voxelizer and interior fill of the mesh mAP. The library is built
-with `g++` at first use by `ops/_native.py`; a missing compiler or a
-failed build raises. Every extractor returns vertices (V, 3) float64 in
-grid-index space and triangles (T, 3) int32.
+device octree's sparse outputs (`mise_marching_cubes(_batch)`), the
+surface voxelizer and interior fill of the mesh mAP, the ray-parity
+containment test `points_in_mesh` and the KD-tree (`KDTree`,
+`kdtree_chamfer`; a library of its own, `csrc/kdtree.cpp`) of the offline
+preparation. The libraries are built with `g++` at first use by
+`ops/_native.py`; a missing compiler or a failed build raises. Every
+extractor returns vertices (V, 3) float64 in grid-index space and
+triangles (T, 3) int32.
 """
 
 from __future__ import annotations
@@ -81,6 +84,22 @@ def get_lib() -> ctypes.CDLL:
     lib.fill_interior.restype = None
     lib.fill_interior.argtypes = [
         _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P]
+    lib.points_in_mesh.restype = None
+    lib.points_in_mesh.argtypes = [
+        _F64P, ctypes.c_int, _I32P, ctypes.c_int, _F64P, ctypes.c_int, _U8P]
+    return lib
+
+
+@functools.cache
+def get_kdtree_lib() -> ctypes.CDLL:
+    lib = _native.load("kdtree")
+    lib.kdtree_build.restype = ctypes.c_void_p
+    lib.kdtree_build.argtypes = [_F64P, ctypes.c_int]
+    lib.kdtree_query.restype = None
+    lib.kdtree_query.argtypes = [
+        ctypes.c_void_p, _F64P, ctypes.c_int, ctypes.c_int, _F64P, _I32P]
+    lib.kdtree_free.restype = None
+    lib.kdtree_free.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -140,13 +159,8 @@ def marching_tetrahedra(grid: np.ndarray, iso: float):
     return _extract(get_lib().mt_extract, _grid(grid, 3), ctypes.c_float(iso))
 
 
-def simplify_mesh(verts, tris, target_faces: int,
-                  aggressiveness: float = 7.0):
-    """Quadric-error-metric simplification of a mesh (V, 3) / (T, 3) toward
-    `target_faces` triangles; a higher `aggressiveness` lets each pass
-    collapse edges of larger error. Returns (verts (V', 3) float64, tris
-    (T', 3) int32), vertices renumbered in order of first use."""
-    lib = get_simplify_lib()
+def _mesh_arrays(verts, tris):
+    """verts (V, 3) float64 and tris (T, 3) int32, contiguous and checked."""
     verts = np.ascontiguousarray(verts, dtype=np.float64)
     tris = np.ascontiguousarray(tris, dtype=np.int32)
     if verts.ndim != 2 or verts.shape[1] != 3 or tris.ndim != 2 or (
@@ -155,6 +169,17 @@ def simplify_mesh(verts, tris, target_faces: int,
                          "(V, 3) and (T, 3)")
     if len(tris) and (tris.min() < 0 or tris.max() >= len(verts)):
         raise ValueError("tris index outside verts")
+    return verts, tris
+
+
+def simplify_mesh(verts, tris, target_faces: int,
+                  aggressiveness: float = 7.0):
+    """Quadric-error-metric simplification of a mesh (V, 3) / (T, 3) toward
+    `target_faces` triangles; a higher `aggressiveness` lets each pass
+    collapse edges of larger error. Returns (verts (V', 3) float64, tris
+    (T', 3) int32), vertices renumbered in order of first use."""
+    lib = get_simplify_lib()
+    verts, tris = _mesh_arrays(verts, tris)
     return _mesh_call(
         lib.simplify_qem, verts.ctypes.data_as(_F64P), len(verts),
         tris.ctypes.data_as(_I32P), len(tris), int(target_faces),
@@ -311,6 +336,62 @@ def fill_interior(surface: np.ndarray) -> np.ndarray:
     lib.fill_interior(surface.ctypes.data_as(_U8P), *surface.shape,
                       out.ctypes.data_as(_U8P))
     return out
+
+
+def points_in_mesh(verts, tris, points) -> np.ndarray:
+    """Whether each of the (P, 3) points lies inside a watertight mesh, by
+    the parity of a +z ray's crossings, as bool (P,)."""
+    verts, tris = _mesh_arrays(verts, tris)
+    points = np.ascontiguousarray(points, dtype=np.float64).reshape(-1, 3)
+    out = np.zeros(len(points), dtype=np.uint8)
+    get_lib().points_in_mesh(
+        verts.ctypes.data_as(_F64P), len(verts), tris.ctypes.data_as(_I32P),
+        len(tris), points.ctypes.data_as(_F64P), len(points),
+        out.ctypes.data_as(_U8P))
+    return out.astype(bool)
+
+
+class KDTree:
+    """3-D KD-tree over (n, 3) points with k-nearest-neighbour queries (the
+    `pykdtree.KDTree` interface)."""
+
+    def __init__(self, points: np.ndarray):
+        self._lib = get_kdtree_lib()
+        self._pts = np.ascontiguousarray(points, dtype=np.float64).reshape(
+            -1, 3)
+        self._handle = ctypes.c_void_p(self._lib.kdtree_build(
+            self._pts.ctypes.data_as(_F64P), len(self._pts)))
+
+    def query(self, queries: np.ndarray, k: int = 1):
+        """(distances (nq, k) L2, indices (nq, k) int32) of each query's k
+        nearest points, nearest first; squeezed to (nq,) at k = 1. Slots
+        beyond the tree's size hold distance 1e150 and index -1."""
+        if k < 1:
+            raise ValueError(f"k = {k}")
+        q = np.ascontiguousarray(queries, dtype=np.float64).reshape(-1, 3)
+        d2 = np.zeros((len(q), k))
+        idx = np.zeros((len(q), k), np.int32)
+        self._lib.kdtree_query(self._handle, q.ctypes.data_as(_F64P), len(q),
+                               k, d2.ctypes.data_as(_F64P),
+                               idx.ctypes.data_as(_I32P))
+        d = np.sqrt(d2)
+        if k == 1:
+            return d[:, 0], idx[:, 0]
+        return d, idx
+
+    def __del__(self):
+        h = getattr(self, "_handle", None)
+        self._handle = None
+        if h:
+            self._lib.kdtree_free(h)
+
+
+def kdtree_chamfer(points1: np.ndarray, points2: np.ndarray) -> float:
+    """Chamfer distance through KD-trees: the mean squared distance to the
+    nearest point of the other set, summed over both directions."""
+    d12, _ = KDTree(points2).query(points1, 1)
+    d21, _ = KDTree(points1).query(points2, 1)
+    return float((d12 ** 2).mean() + (d21 ** 2).mean())
 
 
 class MiseNative:

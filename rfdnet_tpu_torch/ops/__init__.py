@@ -1,5 +1,6 @@
 """Geometry ops of the port. `furthest_point_sample` and `fused_cbn_decode`
-launch hand-written CUDA kernels on CUDA tensors; the rest is plain
+launch hand-written CUDA kernels on CUDA tensors, as do `fusion.render_depth`
+and `fusion.tsdf_fuse` (the offline preparation's); the rest is plain
 torch."""
 
 from .ball_query import ball_query

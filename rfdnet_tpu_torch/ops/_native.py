@@ -1,8 +1,9 @@
 """Build and load the native libraries of `rfdnet_tpu_torch/csrc`.
 
 Each hand-written CUDA kernel `csrc/<name>.cu` compiles with `nvcc` for
-`sm_90a`, and each host library (`csrc/meshing.cpp`, the extractors and
-the voxelizer; `csrc/simplify.cpp`, the QEM simplification) with `g++`, into
+`sm_90a`, and each host library (`csrc/meshing.cpp`, the extractors, the
+voxelizer and the containment test; `csrc/simplify.cpp`, the QEM
+simplification; `csrc/kdtree.cpp`, the KD-tree) with `g++`, into
 its own shared library with a plain C interface, loaded with `ctypes`.
 The build happens at first use, into `csrc/build/` (listed in
 `.gitignore`), under a name that carries a hash of the source and flags,
@@ -29,8 +30,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("fps", "cbn_decoder", "cbn_decoder_bf16")  # csrc/<name>.cu, nvcc
-HOST_LIBS = ("meshing", "simplify")  # csrc/<name>.cpp, g++
+# csrc/<name>.cu, nvcc
+KERNELS = ("fps", "cbn_decoder", "cbn_decoder_bf16", "render_depth",
+           "tsdf_fuse")
+HOST_LIBS = ("meshing", "simplify", "kdtree")  # csrc/<name>.cpp, g++
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

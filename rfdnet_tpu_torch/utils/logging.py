@@ -2,9 +2,9 @@
 scalar logging.
 
 Counterpart of `rfdnet_tpu/utils/logging.py` (`initiate_environment`,
-`AverageMeter`, `LossRecorder`, `LogBoard`) and of the run directory that
-`rfdnet_tpu.config.Config` makes in train mode (`log.path/<ISO time>/`
-with `log.txt` and `out_config.yaml`).
+`AverageMeter`, `LossRecorder`, `LogBoard`, `clean_log_dirs`) and of the
+run directory that `rfdnet_tpu.config.Config` makes in train mode
+(`log.path/<ISO time>/` with `log.txt` and `out_config.yaml`).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import datetime
 import json
 import os
 import random
+import shutil
 import time
 
 import numpy as np
@@ -115,3 +116,25 @@ class LogBoard:
         self._jsonl.close()
         if self._writer is not None:
             self._writer.close()
+
+
+# what marks a run directory as holding a checkpoint: the port's files
+# (`train.checkpoint`) and the JAX package's checkpoint directories
+CHECKPOINT_MARKERS = ("model_last.npz", "model_best.npz", "model_last",
+                      "model_best")
+
+
+def clean_log_dirs(root: str) -> list[str]:
+    """Delete the run directories under `root` that hold no checkpoint.
+    Returns the removed paths."""
+    removed = []
+    if not os.path.isdir(root):
+        return removed
+    for run in os.listdir(root):
+        p = os.path.join(root, run)
+        if not os.path.isdir(p):
+            continue
+        if not set(CHECKPOINT_MARKERS) & set(os.listdir(p)):
+            shutil.rmtree(p)
+            removed.append(p)
+    return removed

@@ -1,6 +1,6 @@
 """Box dumps as meshes, and the training snapshots.
 
-The port's own copy of `write_oriented_bbox_ply` and
+The port's own copy of `write_ply_rgb`, `write_oriented_bbox_ply` and
 `dump_training_snapshot` from `rfdnet_tpu/utils/visualization.py`. The
 JAX package renders a voxel grid in 3D with matplotlib, which the machine
 with the card need not have; `visualize_voxels` here writes the grid's
@@ -23,6 +23,28 @@ _BOX_EDGES = [
     (4, 5), (5, 6), (6, 7), (7, 4),
     (0, 4), (1, 5), (2, 6), (3, 7),
 ]
+
+
+def write_ply_rgb(path: str, points: np.ndarray, colors: np.ndarray):
+    """A coloured point cloud as a binary PLY: points (N, 3), colors (N, 3)
+    as uint8, or as floats in [0, 1] (clipped, then scaled to 0-255)."""
+    points = np.asarray(points, dtype=np.float32).reshape(-1, 3)
+    colors = np.asarray(colors).reshape(-1, 3)
+    if colors.dtype != np.uint8:
+        colors = (np.clip(colors, 0, 1) * 255).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write((
+            "ply\nformat binary_little_endian 1.0\n"
+            f"element vertex {len(points)}\n"
+            "property float x\nproperty float y\nproperty float z\n"
+            "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+            "end_header\n"
+        ).encode())
+        rec = np.empty((len(points),),
+                       dtype=[("xyz", "<f4", (3,)), ("rgb", "u1", (3,))])
+        rec["xyz"] = points
+        rec["rgb"] = colors
+        f.write(rec.tobytes())
 
 
 def write_oriented_bbox_ply(path: str, corners_list: np.ndarray,

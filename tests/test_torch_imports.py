@@ -18,6 +18,8 @@ from rfdnet_tpu.config.config import Config
 from rfdnet_tpu.config.scannet import ScannetConfig
 from rfdnet_tpu_torch import config as tconfig
 from rfdnet_tpu_torch import demo
+from rfdnet_tpu_torch.prep import scannet as prep_scannet
+from rfdnet_tpu_torch.prep import shapenet as prep_shapenet
 from torch_parity import TEST_YAML
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -72,7 +74,7 @@ def test_dataset_constants_equal_rfdnet_tpu():
     np.testing.assert_array_equal(tconfig.MEAN_SIZE_ARR, dc.mean_size_arr)
 
 
-def test_entry_points_without_device_or_cuda_raise(monkeypatch):
+def test_entry_points_without_device_or_cuda_raise(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tconfig.build_model()
@@ -80,3 +82,13 @@ def test_entry_points_without_device_or_cuda_raise(monkeypatch):
         demo.load_demo_data(os.path.join(
             ROOT, "demo", "outputs", "synthetic_room", "synthetic_room.off"),
             num_points=16)
+    # the offline preparation's two entry points, before they read a file
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prep_shapenet.main(["--in_root", str(tmp_path), "--out_root",
+                            str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prep_scannet.main([
+            "--scan2cad", str(tmp_path / "absent.json"), "--scans_root",
+            str(tmp_path), "--shapenet_root", str(tmp_path), "--label_tsv",
+            str(tmp_path / "absent.tsv"), "--out_root", str(tmp_path)])
+    assert os.listdir(tmp_path) == []
