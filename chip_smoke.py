@@ -30,10 +30,12 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    (operations) and `chain_bound_ms`: its steps times the time of one
    step of the stub kernel (the route's reductions, barriers and
    exchange, no point work), which is the least a chain of dependent
-   steps can take on that route. `flag_off`: the kernel with
+   steps can take on that route (also each `batch_shapes` row's, at
+   batch 8). `flag_off`: the kernel with
    `skip_near_origin=False` against the plain version with it (indices
    equal) at SA1's shape at batch 1 and 8 and at a slab of
-   `parallel.halo.fps_bucketed` (20000 -> 2048), timed, with launches;
+   `parallel.halo.fps_bucketed` (20000 -> 2048), timed, with launches
+   and chain bound;
    and on clouds near the origin at every route, where the flag changes
    the selection.
 3. cbn_decode: the fused CBN decoder against its plain version at 64
@@ -201,6 +203,22 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    and labels equal and its votes equal but for at most 1e-4 of the
    points (a point within rounding of a box face may fall on the other
    side; none expected), and no kernel launched.
+19. sanity: the learning check's CLI (`rfdnet_tpu_torch.tools.
+   sanity_train`, in-process) at a small size: 20 detection steps at
+   batch 4 on 8 synthetic 20000-point scenes saved with `--save-to`, then
+   10 completion steps from them (`--finetune-from`) with backbone, voting
+   and detection frozen (`configs/iscnet_completion.yaml`'s list), each
+   scored by the Tester on the tool's 4 held-out scenes: every loss term
+   finite, the frozen parameters bit-equal in the two saved files, the
+   printed metric keys the JAX tool's, launches FPS 5 a step and a scored
+   scene, CBN 2 a scored scene in the completion phase (see
+   `phase_sanity`). `sanity_modes` (not a phase; run it on its own)
+   scores trained completion weights at f32 and at each bf16 mode.
+20. profile_train: `rfdnet_tpu_torch.tools.profile_train --iters 2
+   --trace` in-process at batch 8 x 80000 points: every stage a positive
+   time, FLOPs counted (nonzero) for every stage but FPS's and ball
+   query's, FPS launches a call as `PROFILE_FPS` says, a trace with
+   device events.
 Then the `kernels` summary line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -444,9 +462,9 @@ def fps_edge_inputs(xyz, dev):
 
 
 def phase_fps(xyz, votes, reps: int = 3, sa1_repeats: int = 5):
-    from rfdnet_tpu_torch.ops.fps import (STREAMING_ROUTE, FpsRoute,
-                                          fps_plain, fps_route,
-                                          furthest_point_sample, launch_route)
+    from rfdnet_tpu_torch.ops.fps import (STREAMING_ROUTE, fps_plain,
+                                          fps_route, furthest_point_sample,
+                                          launch_route)
 
     rows = []
     for name, pts, npoint in fps_inputs(xyz, votes):
@@ -463,9 +481,7 @@ def phase_fps(xyz, votes, reps: int = 3, sa1_repeats: int = 5):
         # per step and point: 3 sub, 3 mul, 2 add, 1 min, 1 compare
         b, by = bound_ms(N * 12 + npoint * 4, 10.0 * N * steps, F32_FLOPS)
         ms = cuda_ms(lambda: furthest_point_sample(pts, npoint), reps)
-        stub = FpsRoute("resident", route.cluster, route.threads, 1)
-        stub_ms = cuda_ms(lambda: launch_route(pts, npoint, stub, stub=True),
-                          reps)
+        stub_ms = chain_bound_ms(pts, npoint, route, reps)
         rows.append(dict(
             name=name, n=N, npoint=npoint, equal=equal, compared=len(ks),
             max_abs_err=max(int((k.long() - p.long()).abs().max())
@@ -523,10 +539,24 @@ def fps_batch_rows(xyz, b: int, reps: int = 3):
             active_clusters=active_clusters(route, b),
             ms=cuda_ms(lambda: furthest_point_sample(pts, npoint), reps),
             plain_ms=cuda_ms(lambda: fps_plain(pts, npoint), 1, 0),
-            bound_ms=bnd, bound_by=by))
+            bound_ms=bnd, bound_by=by,
+            chain_bound_ms=chain_bound_ms(pts, npoint, route, reps)))
         check(equal, f"fps {name} at batch {b}: kernel indices differ from "
               "the plain version")
     return rows
+
+
+def chain_bound_ms(pts, npoint: int, route, reps: int = 3,
+                   skip_near_origin: bool = True) -> float:
+    """The least time a chain of npoint - 1 dependent steps takes on a
+    resident route at this batch: the route's stub kernel (its reductions,
+    barriers and exchange, no point work) timed on `pts`."""
+    from rfdnet_tpu_torch.ops.fps import FpsRoute, launch_route
+
+    stub = FpsRoute("resident", route.cluster, route.threads, 1)
+    return cuda_ms(lambda: launch_route(pts, npoint, stub, stub=True,
+                                        skip_near_origin=skip_near_origin),
+                   reps)
 
 
 def fps_flag_off_rows(xyz, reps: int = 3):
@@ -570,7 +600,9 @@ def fps_flag_off_rows(xyz, reps: int = 3):
                                reps),
             plain_ms=cuda_ms(lambda: fps_plain(
                 pts, npoint, skip_near_origin=False), 1, 0),
-            bound_ms=bnd, bound_by=by))
+            bound_ms=bnd, bound_by=by,
+            chain_bound_ms=chain_bound_ms(pts, npoint, fps_route(N, B), reps,
+                                          skip_near_origin=False)))
         check(rows[-1]["equal"] and launches == 1,
               f"fps flag off {name}: {rows[-1]}")
     g = torch.Generator().manual_seed(SEED + 4)
@@ -3530,6 +3562,241 @@ def phase_prep_scannet() -> dict:
     return launches
 
 
+SANITY_SCENES, SANITY_POINTS, SANITY_BATCH = 8, 20000, 4
+SANITY_STEPS = {"detection": 20, "completion": 10}
+# the stage-2 freeze list of configs/iscnet_completion.yaml
+SANITY_FROZEN = ("backbone", "voting", "detection")
+
+
+def sanity_run(argv: list):
+    """`sanity_train.main(argv)` in-process, with each step's loss terms
+    kept: (metrics, the keys it printed, loss terms a step, launches)."""
+    from rfdnet_tpu_torch.tools import sanity_train as st
+
+    histories, train = [], st.train
+
+    def keep(*args, **kw):
+        histories.append(train(*args, **kw))
+        return histories[-1]
+
+    st.train = keep
+    try:
+        reset_launches()
+        metrics, printed = run_logged(lambda: st.main(argv))
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        st.train = train
+    keys = [line.rsplit(":", 1)[0] for line in printed.splitlines()
+            if "@0.25:" in line or "voxel IoU:" in line]
+    return metrics, keys, histories[0], launches
+
+
+def phase_sanity() -> dict:
+    """The learning check's CLI (`rfdnet_tpu_torch.tools.sanity_train`)
+    in-process at a small size, in a temporary directory: SANITY_STEPS
+    detection steps at batch 4 on 8 synthetic 20000-point scenes with
+    `--save-to`, then completion steps from those weights
+    (`--finetune-from`) with backbone, voting and detection frozen, each
+    scored by the Tester on the tool's 4 held-out scenes. Checks: every
+    loss term finite; every frozen parameter bit-equal in the two saved
+    files; the printed keys those the JAX tool prints (mAP and AR @0.25,
+    and in the completion phase one voxel IoU a class with a valid slot:
+    after 30 steps there may be none); FPS
+    launches 5 a step and 5 a scored scene, CBN 0 in detection and 2 a
+    scored scene in completion (the completion loss and the 16^3 voxels).
+    Returns the launches of each stage's run."""
+    import numpy as np
+
+    from rfdnet_tpu_torch.config import CLASS2TYPE
+    from rfdnet_tpu_torch.tools import sanity_train as st
+
+    tmp = tempfile.mkdtemp(prefix="sanity_")
+    det, comp = os.path.join(tmp, "det"), os.path.join(tmp, "comp")
+    common = ["--scenes", str(SANITY_SCENES), "--batch", str(SANITY_BATCH),
+              "--points", str(SANITY_POINTS)]
+    runs, launches = {}, {}
+    try:
+        for phase, extra in (
+                ("detection", ["--save-to", det]),
+                ("completion", ["--finetune-from", det, "--freeze",
+                                ",".join(SANITY_FROZEN), "--save-to", comp])):
+            steps = SANITY_STEPS[phase]
+            t0 = time.perf_counter()
+            metrics, keys, history, counts = sanity_run(
+                [*common, "--phase", phase, "--steps", str(steps), *extra])
+            seconds = time.perf_counter() - t0
+            finite = all(np.isfinite(v) for h in history for v in h.values())
+            check(len(history) == steps and finite,
+                  f"sanity {phase}: {len(history)} steps, finite {finite}")
+            voxel = keys[2:]
+            check(keys[:2] == ["mAP @0.25", "AR @0.25"]
+                  and all(k.endswith(" voxel IoU") and k.removesuffix(
+                      " voxel IoU") in CLASS2TYPE.values() for k in voxel)
+                  and (phase == "completion" or not voxel)
+                  and keys == list(st.printed(metrics)),
+                  f"sanity {phase}: printed keys {keys}")
+            val = 4  # the tool's held-out scenes
+            want = {"fps": 5 * (steps + val),
+                    "cbn_decode": 2 * val if phase == "completion" else 0}
+            check(counts == want, f"sanity {phase}: launches {counts}, "
+                  f"expected {want}")
+            launches[f"sanity_{phase}"] = counts
+            runs[phase] = dict(
+                steps=steps, seconds=seconds, launches=counts,
+                first=history[0], last=history[-1],
+                metrics={k: metrics[k] for k in keys})
+        with np.load(det + ".npz") as a, np.load(comp + ".npz") as b:
+            frozen = [k for k in a.files if k.startswith("params/")
+                      and k.split("/")[1] in SANITY_FROZEN]
+            unequal = [k for k in frozen if not np.array_equal(a[k], b[k])]
+        check(frozen and not unequal,
+              f"sanity: frozen parameters changed in stage 2: {unequal}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase="sanity", scenes=SANITY_SCENES, points=SANITY_POINTS,
+         batch=SANITY_BATCH, frozen_parameters_equal=len(frozen), runs=runs)
+    return launches
+
+
+# the FPS launches of one call of each stage of the train-step profile (by
+# its `--stages` key): five a train step (SA1-4, seed_fps), four the
+# backbone, one the proposal head's seed_fps
+PROFILE_FPS = {"full_step": 5, "det_step": 5, "backbone_fwd": 4,
+               "backbone_bwd": 4, "fps_sa1": 1, "ballq_sa1": 0,
+               "vote_prop": 1, "skip_prop": 0, "onet_loss": 0}
+
+
+def phase_profile_train() -> dict:
+    """`python -m rfdnet_tpu_torch.tools.profile_train --iters 2 --trace`
+    in-process at its full size (batch 8 x 80000 points): every stage a
+    positive time, FLOPs counted for every stage but FPS's and ball
+    query's (`full_step`'s nonzero), each stage's FPS launches a call as
+    PROFILE_FPS says and no CBN launch (train mode decodes layer by
+    layer), the trace written with device events. Returns each stage's
+    launches a call."""
+    from rfdnet_tpu_torch.tools import profile_train as pt
+
+    tmp = tempfile.mkdtemp(prefix="profile_train_")
+    trace = os.path.join(tmp, "trace.json")
+    try:
+        rows, printed = run_logged(lambda: pt.main(
+            ["--iters", "2", "--trace", trace]))
+        traced = json.loads(next(
+            line for line in printed.splitlines()
+            if line.startswith('{"trace_full_step"')))["trace_full_step"]
+        check(os.path.getsize(trace) > 0 and traced["device_events"] > 0,
+              f"profile_train: trace {traced}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    names = pt.stage_names(pt.BATCH, pt.POINTS)
+    check([r["stage"] for r in rows] == list(names.values()),
+          f"profile_train: stages {[r['stage'] for r in rows]}")
+    for key, r in zip(names, rows):
+        check(r["ms"] > 0 and (r["flops"] is None if key in pt.NO_FLOPS
+                               else r["flops"] > 0),
+              f"profile_train: {r}")
+        check(r["launches"] == {"fps": PROFILE_FPS[key], "cbn_decode": 0},
+              f"profile_train {key}: launches {r['launches']}")
+    emit(phase="profile_train", rows=rows, trace={
+        k: traced[k] for k in ("window_ms", "device_busy_ms", "idle_share",
+                               "device_events", "top")})
+    return {f"profile_{key}": r["launches"] for key, r in zip(names, rows)}
+
+
+# the Tester's four ways for `sanity_modes`: f32, and each bf16 mode
+SANITY_MODES = {
+    "f32": {},
+    "decoder_bf16": {"data": {"decoder_bf16": True}},
+    "decoder_impl_pallas": {"generation": {"decoder_impl": "pallas"}},
+    "mlp_bf16": {"data": {"mlp_bf16": True}},
+}
+
+
+def sanity_modes(weights: str, points: int = 20000, scenes: int = 32,
+                 grid_res: int = 32) -> dict:
+    """The accuracy of the bf16 modes with trained weights: the completion
+    weights at `weights` (`<weights>.npz`, from `sanity_train --save-to`)
+    scored by the Tester (the tool's config) on the tool's held-out scenes
+    (drawn as the tool draws them for `scenes` train scenes) four ways
+    (SANITY_MODES), and each scene's generation at a `grid_res`^3 dense
+    grid: mAP and AR @0.25, voxel IoU by class, and against f32 the share
+    of grid voxels whose occupancy (logit >= logit(threshold)) differs, and
+    that of the 16^3 shape voxels, over the slots that hold the same
+    proposal in both runs. `generation.decoder_impl: pallas` changes only
+    the grid decode, so its Tester metrics equal f32's by construction.
+    Run on the card with one JSON line a mode, e.g.
+    `python3 -c "import chip_smoke; chip_smoke.sanity_modes('w/comp')"`."""
+    import numpy as np
+
+    from rfdnet_tpu_torch.config import eval_config, update_recursive
+    from rfdnet_tpu_torch.eval.tester import decoder_impl_dtype
+    from rfdnet_tpu_torch.tools import sanity_train as st
+    from rfdnet_tpu_torch.weights import load_npz
+
+    dev = torch.device("cuda", 0)
+    _, val = st.make_scenes(np.random.RandomState(0), scenes, points)
+    out, ref = {}, None
+    for mode, over in SANITY_MODES.items():
+        cfg = st.tester_config(points, "completion")
+        update_recursive(cfg, over)
+        d, gen_cfg = cfg["data"], cfg["generation"]
+        model = st.build_model(
+            "completion", dev, decoder_bf16=bool(d.get("decoder_bf16")),
+            mlp_dtype=torch.bfloat16 if d.get("mlp_bf16") else None)
+        load_npz(model, weights + ".npz")
+        model.eval()
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = st.score(cfg, model, val, log=lambda _: None)
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        iso = float(np.log(d["threshold"] / (1 - d["threshold"])))
+        ec = eval_config(cfg)
+        runs = []
+        for scene in val:
+            data = {k: torch.from_numpy(scene[k]).to(dev) for k in (
+                "point_clouds", "center_label", "box_label_mask",
+                "sem_cls_label", "point_instance_labels",
+                "object_instance_labels", "object_points",
+                "object_points_occ")}
+            g = model.generate(
+                data, nms_iou=ec["nms_iou"], use_cls_nms=ec["cls_nms"],
+                dump_threshold=gen_cfg["dump_threshold"],
+                remove_empty_box=ec["remove_empty_box"],
+                decode_grid_res=grid_res,
+                grid_mxu_dtype=decoder_impl_dtype(gen_cfg))
+            runs.append(dict(
+                ids=g["gen"]["proposal_ids"][..., 0].reshape(-1).cpu().numpy(),
+                valid=g["gen"]["valid"].reshape(-1).cpu().numpy().astype(bool),
+                grid=(g["grids"] >= iso).cpu().numpy(),
+                voxels=np.unpackbits(g["shape_voxels_bits"].cpu().numpy(),
+                                     axis=-1)))
+        row = dict(mode=mode, seconds=seconds, launches=launches,
+                   metrics=st.printed(metrics))
+        if ref is None:
+            ref = runs
+        else:
+            same = [r["valid"] & f["valid"] & (r["ids"] == f["ids"])
+                    for r, f in zip(runs, ref)]
+            row.update(
+                slots_compared=int(sum(s.sum() for s in same)),
+                slots_valid=int(sum(r["valid"].sum() for r in runs)),
+                grid_differ_share=float(
+                    sum((r["grid"][s] != f["grid"][s]).sum()
+                        for r, f, s in zip(runs, ref, same))
+                    / max(1, sum(s.sum() for s in same) * grid_res ** 3)),
+                voxel16_differ_share=float(
+                    sum((r["voxels"][s] != f["voxels"][s]).sum()
+                        for r, f, s in zip(runs, ref, same))
+                    / max(1, sum(s.sum() for s in same) * 16 ** 3)))
+        out[mode] = row
+        print(json.dumps({"sanity_mode": row}), flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_summary(fps_rows, fps_batch, fps_flag_off, cbn_rows, launches,
                    test_cbn, mise_cbn, prep):
     """One entry per kernel. `launches` and the times are the main path's
@@ -3542,7 +3809,9 @@ def kernel_summary(fps_rows, fps_batch, fps_flag_off, cbn_rows, launches,
     `mlp_bf16` a scene of the bf16 chains, `serve_b8` / `serve_b1` /
     `serve_group` a served batch of 8, a batch-1 call and the batch of 8
     in a one-rank group, `point_shard_bucketed` one `fps_bucketed` call,
-    `ddp_train` / `ddp_val` a train and a val step in a one-rank group),
+    `ddp_train` / `ddp_val` a train and a val step in a one-rank group,
+    `sanity_detection` / `sanity_completion` a run of the learning check's
+    CLI, `profile_<stage>` one call of a train-step profile stage),
     `detection_ms` the FPS calls of the
     detection path (SA1-4 and vote_fps), the FPS entry's `train_batch`
     its five calls of a train step at batch 8 and `flag_off` the kernel
@@ -3588,12 +3857,14 @@ def kernel_summary(fps_rows, fps_batch, fps_flag_off, cbn_rows, launches,
                  b=fps_batch[0]["b"], ms=sum(r["ms"] for r in fps_batch),
                  plain_ms=sum(r["plain_ms"] for r in fps_batch),
                  bound_ms=sum(r["bound_ms"] for r in fps_batch),
+                 chain_bound_ms=sum(r["chain_bound_ms"] for r in fps_batch),
                  max_abs_err=max(r["max_abs_err"] for r in fps_batch),
                  active_clusters={r["name"]: r["active_clusters"]
                                   for r in fps_batch}),
              flag_off={r["name"]: {k: r[k] for k in (
                  "b", "n", "npoint", "launches", "max_abs_err", "ms",
-                 "ms_flag_on", "plain_ms", "bound_ms", "bound_by")}
+                 "ms_flag_on", "plain_ms", "bound_ms", "bound_by",
+                 "chain_bound_ms")}
                  for r in fps_flag_off["rows"]}),
         dict(name="cbn_decode", route="cuda",
              source="rfdnet_tpu_torch/csrc/cbn_decoder.cu",
@@ -3724,6 +3995,11 @@ def main() -> int:
     done("prep")
     launches["prep_scannet"] = phase_prep_scannet()
     done("prep_scannet")
+    launches.update(phase_sanity())
+    done("sanity")
+    launches.update(phase_profile_train())
+    torch.cuda.empty_cache()
+    done("profile_train")
     emit(phase="timing", seconds=seconds, total_s=sum(seconds.values()))
 
     print(json.dumps({"kernels": kernel_summary(

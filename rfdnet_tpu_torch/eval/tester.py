@@ -72,9 +72,11 @@ _DEVICE_ONLY = ("features", "cls_codes")
 
 
 def compute_iou(occ1: np.ndarray, occ2: np.ndarray) -> np.ndarray:
-    """Batched boolean-set IoU over the flattened trailing dims."""
-    occ1 = np.asarray(occ1).reshape(occ1.shape[0], -1) >= 0.5
-    occ2 = np.asarray(occ2).reshape(occ2.shape[0], -1) >= 0.5
+    """Batched boolean-set IoU over the flattened trailing dims (an empty
+    batch, a scene without a valid slot, gives an empty result)."""
+    occ1, occ2 = np.asarray(occ1), np.asarray(occ2)
+    occ1 = occ1.reshape(len(occ1), int(np.prod(occ1.shape[1:]))) >= 0.5
+    occ2 = occ2.reshape(len(occ2), int(np.prod(occ2.shape[1:]))) >= 0.5
     union = (occ1 | occ2).sum(axis=-1)
     inter = (occ1 & occ2).sum(axis=-1)
     return inter / np.maximum(union, 1)

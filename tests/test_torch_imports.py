@@ -20,6 +20,7 @@ from rfdnet_tpu_torch import config as tconfig
 from rfdnet_tpu_torch import demo
 from rfdnet_tpu_torch.prep import scannet as prep_scannet
 from rfdnet_tpu_torch.prep import shapenet as prep_shapenet
+from rfdnet_tpu_torch.tools import profile_train, sanity_train
 from torch_parity import TEST_YAML
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -91,4 +92,9 @@ def test_entry_points_without_device_or_cuda_raise(monkeypatch, tmp_path):
             "--scan2cad", str(tmp_path / "absent.json"), "--scans_root",
             str(tmp_path), "--shapenet_root", str(tmp_path), "--label_tsv",
             str(tmp_path / "absent.tsv"), "--out_root", str(tmp_path)])
+    # the learning check and the train-step profile, before any work
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sanity_train.main(["--save-to", str(tmp_path / "weights")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_train.main(["--trace", str(tmp_path / "trace.json")])
     assert os.listdir(tmp_path) == []

@@ -267,17 +267,23 @@ STAGES = {
 }
 
 
-def grid_batch(seed: int, batch_size: int = 2, num_points: int = 1024):
-    """A synthetic batch whose scene points (and heights) lie on a 1/128
-    grid."""
-    b = synthetic_scene_batch(np.random.RandomState(seed),
-                              batch_size=batch_size, num_points=num_points,
-                              mean_size_arr=tconfig.MEAN_SIZE_ARR)
-    pc = b["point_clouds"]
+def on_grid(scene: dict) -> dict:
+    """`scene` with its points (and heights) on `grid_batch`'s 1/128 grid."""
+    scene = dict(scene)
+    pc = scene["point_clouds"].copy()
     pc[..., :3] = np.round(pc[..., :3] * 128) / 128
     floor = np.percentile(pc[..., 2], 0.99, axis=1)[:, None]
     pc[..., 3] = np.round((pc[..., 2] - floor) * 128) / 128
-    return b
+    scene["point_clouds"] = pc
+    return scene
+
+
+def grid_batch(seed: int, batch_size: int = 2, num_points: int = 1024):
+    """A synthetic batch whose scene points (and heights) lie on a 1/128
+    grid."""
+    return on_grid(synthetic_scene_batch(
+        np.random.RandomState(seed), batch_size=batch_size,
+        num_points=num_points, mean_size_arr=tconfig.MEAN_SIZE_ARR))
 
 
 def torch_batch(batch):
@@ -358,8 +364,6 @@ def check_train_step(stage: str) -> None:
     parameters. The body of each stage's `test_train_step_matches_jax`
     (`tests/test_torch_train_step_stage*.py`, a file a stage, so that the
     three JAX train-step compiles run on different workers)."""
-    import optax
-
     from rfdnet_tpu.train import trainer as jtrainer
     from rfdnet_tpu_torch.models import common as tcommon
     from rfdnet_tpu_torch.train import trainer as ttrainer
@@ -418,6 +422,21 @@ def check_train_step(stage: str) -> None:
 
     got = ttrainer.train_step(port, trainer.optimizer, tb, lr,
                               trainer.completion_weight, eps=eps)
+    spec_of = ttrainer.make_optimizer_with_specs(cfg["optimizer"],
+                                                 cfg["model"])
+    assert_step_matches(port, trainer.optimizer, spec_of, before, got, want,
+                        new, frozen, lr)
+
+
+def assert_step_matches(port, optimizer, spec_of, before: dict, got: dict,
+                        want: dict, new, frozen, lr: float) -> None:
+    """The port's step (`port` after it, its `optimizer`, the `before`
+    state dict, the loss terms `got`) against the JAX step's loss terms
+    `want` and new `TrainState`, as `check_train_step` holds them (see
+    the comment over this section); `spec_of`: the port's per-module
+    `AdamSpec`s."""
+    import optax
+
     assert set(got) == set(want)
     for k in want:
         assert_close(got[k], want[k], what=k)
@@ -425,7 +444,7 @@ def check_train_step(stage: str) -> None:
     # gradients, as Adam's first moments (1 - b1) (g + wd p)
     jmu = _adam_first_moments(new.opt_state)
     mods = {}
-    for name, mu in zip(trainer.optimizer.names, trainer.optimizer.mu):
+    for name, mu in zip(optimizer.names, optimizer.mu):
         mods.setdefault(name.split(".")[0], []).append(
             (mu.numpy().ravel(), np.asarray(jmu[name]).ravel()))
     assert set(mods) == {n for n, _ in port.named_children()} - set(frozen)
@@ -435,8 +454,6 @@ def check_train_step(stage: str) -> None:
         assert rel_l2(got_g, want_g) <= STEP_GRAD_RTOL, mod
 
     # parameters: optax's Adam on the port's own gradients, and the bound
-    spec_of = ttrainer.make_optimizer_with_specs(cfg["optimizer"],
-                                                 cfg["model"])
     after = port.state_dict()
     jafter = from_flax({"params": new.params, "batch_stats": new.batch_stats})
     for name, p in port.named_parameters():
@@ -462,6 +479,88 @@ def check_train_step(stage: str) -> None:
             assert_close(after[name], jafter[name], atol=STEP_STATS_ATOL,
                          rtol=STEP_STATS_RTOL, what=name)
             assert not torch.equal(after[name], before[name]), name
+
+
+# the sanity tool's step checks: its model at SMALL's widths, its scenes at
+# 2048 points, batch 2, the stage-2 freeze list. The scenes' generator is
+# seeded as the step tests' batches are (see above), at the first seed
+# whose batch keeps the tolerances: from RandomState(0), (1) and (3) one
+# vote lies on the 0.3 m radius of a proposal's aggregation ball (the two
+# packages' votes differ by ~8e-5, their f32 sums), which moves that
+# proposal's head outputs by up to 0.45 and the box loss by ~3e-3; from
+# (2) skip propagation's STN gradients are 0.56 (relative L2) from JAX's;
+# from (4) a point on a 1 m ball's radius moves the mask loss by 4.3e-4.
+# The scene and batch-order test and `main`'s use the tool's RandomState(0).
+SANITY_WIDTHS = {k: SMALL["data"][k] for k in ("c_dim", "hidden_dim",
+                                                "z_dim")}
+SANITY_POINTS, SANITY_BATCH, SANITY_SEED = 2048, 2, 5
+SANITY_FROZEN = ("backbone", "voting", "detection")
+
+
+def check_sanity_step(phase: str) -> None:
+    """One step of `rfdnet_tpu_torch.tools.sanity_train`'s step loop
+    (`train`; in the completion phase with `SANITY_FROZEN` frozen) against
+    the JAX tool's `make_train_step(frozen=...)` on the same batch (the
+    tool's first two scenes, on the 1/128 grid, in
+    the JAX loop's order), from the same `from_flax` variables, with the
+    JAX step's posterior noise injected; held as `check_train_step`
+    holds a step (`assert_step_matches`). The scenes come from
+    `RandomState(SANITY_SEED)`, see there."""
+    from rfdnet_tpu.config.scannet import ScannetConfig
+    from rfdnet_tpu.train import trainer as jtrainer
+    from rfdnet_tpu_torch.tools import sanity_train as st
+    from rfdnet_tpu_torch.train.trainer import make_optimizer_with_specs
+
+    dc = ScannetConfig()
+    frozen = SANITY_FROZEN if phase == "completion" else ()
+    model = ISCNet(mean_size_arr=dc.mean_size_arr, phase=phase,
+                   completion_limit=st.COMPLETION_LIMIT,
+                   generate_limit=st.GENERATE_LIMIT, **SANITY_WIDTHS)
+    variables = step_variables(phase)
+    rng = np.random.RandomState(SANITY_SEED)
+    train, _ = st.make_scenes(rng, SANITY_BATCH, SANITY_POINTS)
+    train = [on_grid(s) for s in train]
+    # the JAX tool's loop, on a copy of the generator's state
+    jrng = np.random.RandomState(0)
+    jrng.set_state(rng.get_state())
+    order = np.arange(SANITY_BATCH)
+    jrng.shuffle(order)
+    sel = order[:SANITY_BATCH]
+    jb = {k: jnp.asarray(np.concatenate([train[i][k] for i in sel]))
+          for k in train[0]}
+    key = jax.random.fold_in(jax.random.PRNGKey(0), 0)
+    lr = 1e-3
+    tx = jtrainer.make_optimizer()
+    step = jax.jit(jtrainer.make_train_step(model, dc, tx, frozen=frozen,
+                                            jit=False))
+    state = jtrainer.TrainState(
+        step=jnp.int32(0), params=variables["params"],
+        batch_stats=variables["batch_stats"],
+        opt_state=tx.init(variables["params"]))
+    new, want = step(state, jb, key, jnp.float32(lr),
+                     jnp.float32(st.BN_MOMENTUM))
+
+    port = st.build_model(phase, "cpu", **SANITY_WIDTHS)
+    port.load_state_dict(from_flax(variables), strict=True)
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    optimizer = st.make_optimizer(port, frozen)
+    eps = None
+    if phase == "completion":
+        eps = t(jax.random.normal(
+            jax.random.split(key)[1],
+            (SANITY_BATCH * st.COMPLETION_LIMIT, SANITY_WIDTHS["z_dim"])))
+    steps = []
+
+    def noise(it):
+        steps.append(it)
+        return eps
+
+    history = st.train(port, optimizer, train, rng, 1, SANITY_BATCH, lr,
+                       noise=noise, log=lambda _: None)
+    assert steps == [0] and len(history) == 1
+    got = {k: torch.tensor(v) for k, v in history[0].items()}
+    assert_step_matches(port, optimizer, make_optimizer_with_specs({}, {}),
+                        before, got, want, new, frozen, lr)
 
 
 # -------------------------------------------------------------- serving
