@@ -66,7 +66,7 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    the iso level everywhere, the others counted.
 7. mise: a copy of `configs/iscnet_test.yaml` with `upsampling_steps: 2`
    (Occupancy Networks' generation setting: resolution_0 32, two steps,
-   R = 128) and this script's seed, on the demo scene at full width: five
+   R = 128) and this script's seed, on the demo scene at full width: three
    `demo.generate` scenes after a warm-up through the device octree, with
    scene latency to the meshes, per level the active voxels, decoded
    points and CBN launches, the octree's device time (CUDA events), the
@@ -121,8 +121,9 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    against the CPU (same weights): NMS mask, proposal and GT ids equal,
    losses within tolerance, voxel bits equal away from the iso level,
    refit boxes close where both meshes are equal. Then `--mode test` on a
-   copy with `upsampling_steps: 2` (`tester_mise`): the octree on the card
-   at every scene, metrics with the mesh mAP, dumps read back and closed.
+   copy with `upsampling_steps: 2` (`tester_mise`) over the first scene:
+   the octree on the card, metrics with the mesh mAP, dumps read back and
+   closed.
 13. train: eight full-width synthetic scenes (80000 points, 12 objects)
    in the dataset's layout, listed in both the train and the val split,
    and a copy of `configs/iscnet.yaml` (stage 3) with `finetune: false`,
@@ -177,8 +178,8 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    the final parameters are reported, not checked (see `phase_ddp`).
    Device ms a step, the gradient all-reduce's ms, sync-BN all-reduces
    a step, launches.
-18. prep: the offline ShapeNet preparation on the 13 checked-in demo
-   meshes (`demo/outputs/scene0549_00/`, one category) and a seeded
+18. prep: the offline ShapeNet preparation on the first 7 (by name) of
+   the 13 checked-in demo meshes (`demo/outputs/scene0549_00/`, one category) and a seeded
    non-watertight mesh of ~50k faces (open boxes, a sphere without its
    cap). On two of them at the CLI's full width (100 views of 640 x 640,
    a 256^3 grid) each kernel against its plain version on the card:
@@ -187,7 +188,7 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    (CUDA events, 3 launches after a warm-up), the plain version's and the
    bound (FP64 at 34 TFLOP/s or bytes). Then `python -m
    rfdnet_tpu_torch.prep.shapenet` (called in-process, `main(argv)`)
-   over all 14 models: exit code 0, one launch of each kernel a model,
+   over all 8 models: exit code 0, one launch of each kernel a model,
    every output file read back, every watertight mesh closed, every
    simplified one below its watertight mesh's faces (the faces are
    printed: the QEM is the JAX package's, which stops above the 5000
@@ -219,6 +220,14 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    time, FLOPs counted (nonzero) for every stage but FPS's and ball
    query's, FPS launches a call as `PROFILE_FPS` says, a trace with
    device events.
+21. protocol: the protocol dataset and run (`rfdnet_tpu_torch.tools.
+   gen_synthetic_dataset` and `.protocol_run`, in-process) at full width
+   and a small depth: 8 train and 2 val scenes of the generator's shapes
+   (one variant a class, 120000 raw points), one epoch a stage at batch 4
+   (each a `--mode train` subprocess), the test protocol with the mesh mAP
+   in this process; every stage exits 0 and logs its epoch and schedule,
+   stages 2 and 3 and the test load their predecessor's weights, the
+   test's launches FPS 5 and CBN 3 a scene (see `phase_protocol`).
 Then the `kernels` summary line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -892,6 +901,19 @@ def launches_between(before: dict, after: dict) -> dict:
     return diff
 
 
+def part_timer():
+    """(seconds, lap): `lap(name)` records under `name` in `seconds` the
+    host-clock seconds since the previous lap (or this call)."""
+    seconds, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = round(now - last[0], 3)
+        last[0] = now
+
+    return seconds, lap
+
+
 def spread(values) -> dict:
     return {"mean": sum(values) / len(values), "min": min(values),
             "max": max(values)}
@@ -1505,7 +1527,9 @@ def mise_reference(cfg, model, num_points: int = 4096) -> dict:
     check(bool(((got - want).abs() <= 1e-4 * scale + 1e-3 * want.abs())
                .all()), f"mise reference: sampled grids differ by "
           f"{sample_err}")
-    off_prior = float((demo.generate_grids(prior, cpu_model, pc.cpu())[3]
+    # the prior-mean grids from the card's run (held to the CPU's by the
+    # `reference` and `tester` phases): one full-width decode on the CPU less
+    off_prior = float((demo.generate_grids(prior, model, pc)[3].cpu()
                        .double() - want).abs().max())
     check(off_prior > 1e-3 * scale, "mise reference: the sampled z moved "
           f"the grids by only {off_prior}")
@@ -1518,7 +1542,7 @@ def mise_reference(cfg, model, num_points: int = 4096) -> dict:
                 sampled_grid_err=sample_err, sampled_off_prior=off_prior)
 
 
-def phase_mise(model, data, scenes: int = 5, reps: int = 3):
+def phase_mise(model, data, scenes: int = 3, reps: int = 3):
     """MISE at full width (see the module docstring). Returns (launches
     of one scene, the CBN kernel's rows at the level shapes)."""
     import numpy as np
@@ -1529,6 +1553,7 @@ def phase_mise(model, data, scenes: int = 5, reps: int = 3):
     from rfdnet_tpu_torch.meshing.mise_device import reconstruct_dense
 
     cwd = os.getcwd()
+    seconds, lap = part_timer()
     with tempfile.TemporaryDirectory() as tmp:
         cfg_path = mise_config(tmp)
         cfg = config.load_config(cfg_path, mode="demo")
@@ -1544,6 +1569,7 @@ def phase_mise(model, data, scenes: int = 5, reps: int = 3):
             return out
 
         run = timed_scenes(scene, scenes)
+        lap("scenes")
         parsed, gen, meshes = run.pop("first")
         host_runs = host_runs[1:]  # without the warm-up
         levels = host_runs[0]["levels"]
@@ -1587,6 +1613,7 @@ def phase_mise(model, data, scenes: int = 5, reps: int = 3):
         grid_err = float(np.abs(dense[vg] - host_grids[vg]).max())
         sets_equal = all(device_sets[g, l] == oracle_sets[g, l]
                          for g in vg for l in range(MISE_STEPS))
+        lap("octrees")
         # the decoder at each level's shape
         check(len(captured) == level_launches,
               f"mise: {len(captured)} decodes captured, {levels}")
@@ -1608,6 +1635,7 @@ def phase_mise(model, data, scenes: int = 5, reps: int = 3):
                 n += 1
         del captured
         torch.cuda.empty_cache()
+        lap("cbn_rows")
         triangles = sum(len(m.faces) for m in meshes)
         emit(phase="mise", resolution_0=res0, upsampling_steps=MISE_STEPS,
              points=int(data["point_clouds"].shape[1]),
@@ -1639,6 +1667,7 @@ def phase_mise(model, data, scenes: int = 5, reps: int = 3):
         check(np.array_equal(oracle_grids[vg], host_grids[vg]),
               "mise: the Python and C++ octrees differ")
         emit(phase="mise_reference", **mise_reference(cfg, model))
+        lap("reference")
         # the CLI in demo mode on the copy
         os.chdir(tmp)
         try:
@@ -1655,9 +1684,10 @@ def phase_mise(model, data, scenes: int = 5, reps: int = 3):
                     if f.startswith("proposal_")]
         finally:
             os.chdir(cwd)
+    lap("cli_demo")
     emit(phase="mise_demo", cli_s=demo_s, launches=demo_launches,
          mesh_files=len(plys), open_edges=closed_meshes(plys),
-         triangles=sum(len(m.faces) for m in plys))
+         triangles=sum(len(m.faces) for m in plys), phase_seconds=seconds)
     check(len(plys) > 0 and closed_meshes(plys) == 0,
           "mise: the CLI demo's meshes missing or not closed")
     check(demo_launches == run["launches"],
@@ -1859,6 +1889,7 @@ def phase_detection(dev, scenes: int = 3, num_points: int = 4096):
 
 
 TESTER_SCENES = 2
+TESTER_MISE_SCENES = 1  # the first of them for the test path with MISE
 
 
 def tester_config(tmp: str, paths: dict, name: str, pairs=()) -> str:
@@ -1875,16 +1906,18 @@ def tester_config(tmp: str, paths: dict, name: str, pairs=()) -> str:
             *pairs)])
 
 
-def read_test_dumps(root: str, points: int, objects: int) -> dict:
-    """The Tester's per-scene files under `root`, read back and checked."""
+def read_test_dumps(root: str, points: int, objects: int,
+                    scenes: int = TESTER_SCENES) -> dict:
+    """The Tester's per-scene files of `scenes` scenes under `root`, read
+    back and checked."""
     import numpy as np
 
     from rfdnet_tpu_torch.meshing.mesh import TriMesh
 
-    scenes = sorted(os.listdir(root))
-    check(len(scenes) == TESTER_SCENES, f"tester: dumps of {scenes}")
+    dirs = sorted(os.listdir(root))
+    check(len(dirs) == scenes, f"tester: dumps of {dirs}")
     mesh_files = triangles = html_files = 0
-    for scene in scenes:
+    for scene in dirs:
         d = os.path.join(root, scene)
         files = os.listdir(d)
         for name in ("000000_pc.ply", "000000_pred_confident_nms_bbox.ply",
@@ -1908,13 +1941,14 @@ def read_test_dumps(root: str, points: int, objects: int) -> dict:
                    f"tester: {scene}")
         html_files += 1
     check(mesh_files > 0, "tester: no mesh written")
-    return dict(scenes=len(scenes), mesh_files=mesh_files,
+    return dict(scenes=len(dirs), mesh_files=mesh_files,
                 triangles=triangles, html_files=html_files)
 
 
-def cli_test(cfg_path: str, cwd: str):
-    """`cli.main --mode test` on `cfg_path` in `cwd`: (metrics, seconds,
-    launches, the dumps read back, open edges of the dumped meshes)."""
+def cli_test(cfg_path: str, cwd: str, scenes: int = TESTER_SCENES):
+    """`cli.main --mode test` on `cfg_path` (a split of `scenes` scenes) in
+    `cwd`: (metrics, seconds, launches, the dumps read back, open edges of
+    the dumped meshes)."""
     from rfdnet_tpu_torch import cli, config
     from rfdnet_tpu_torch.meshing.mesh import TriMesh
 
@@ -1934,7 +1968,7 @@ def cli_test(cfg_path: str, cwd: str):
     check("export failed" not in printed, "tester: an export failed")
     root = os.path.join(cwd, "out", "test", "visualization")
     points = config.load_config(cfg_path, mode="test")["data"]["num_point"]
-    dumps = read_test_dumps(root, points, 12)
+    dumps = read_test_dumps(root, points, 12, scenes)
     dumps["open_edges"] = closed_meshes(
         TriMesh.load(os.path.join(d, f)) for d, _, files in os.walk(root)
         for f in files if f.startswith("proposal_"))
@@ -2061,6 +2095,7 @@ def phase_tester(dev, reps: int = 3):
     from rfdnet_tpu_torch.data.synthetic import write_scannet_scenes
     from rfdnet_tpu_torch.eval.tester import Tester
 
+    seconds, lap = part_timer()
     with tempfile.TemporaryDirectory() as tmp:
         paths = write_scannet_scenes(os.path.join(tmp, "data"),
                                      TESTER_SCENES, seed=SEED,
@@ -2068,6 +2103,7 @@ def phase_tester(dev, reps: int = 3):
         cfg_path = tester_config(tmp, paths, "iscnet_test.yaml")
         metrics, cli_s, launches, dumps = cli_test(cfg_path,
                                                    os.path.join(tmp, "run"))
+        lap("cli")
         cfg = config.load_config(cfg_path, mode="test")
         points = cfg["data"]["num_point"]
         model = cli.restore_weights(cfg, config.build_model(cfg, device=dev),
@@ -2094,6 +2130,7 @@ def phase_tester(dev, reps: int = 3):
                                      for k in got if k in metrics)))
             check(t.evaluate_mesh_mAP == ("mAP_mesh @0.5" in got),
                   f"tester: metrics of a run {sorted(got)}")
+        lap("timed_runs")
         # the decodes of one scene, on the operands the path gives them
         captured, launch = [], occnet.fused_cbn_decode
 
@@ -2128,19 +2165,31 @@ def phase_tester(dev, reps: int = 3):
                  k: v for k, v in metrics.items()
                  if k.startswith(("mAP", "AR")) or "voxel IoU" in k},
              runs=runs, cbn_decode=cbn)
+        lap("cbn_rows")
         tester_reference(plain, model)
-        # the test path with MISE (and the mesh mAP)
-        mise_path = tester_config(tmp, paths, "iscnet_test_mise.yaml", [
+        lap("reference")
+        # the test path with MISE (and the mesh mAP) on the first scenes: a
+        # split beside the other, so that its relative entries hold
+        first = dict(paths, split=paths["split"] + "_mise")
+        os.makedirs(first["split"])
+        with open(os.path.join(paths["split"], "scannetv2_val.json")) as f:
+            entries = json.load(f)[:TESTER_MISE_SCENES]
+        with open(os.path.join(first["split"], "scannetv2_val.json"),
+                  "w") as f:
+            json.dump(entries, f)
+        mise_path = tester_config(tmp, first, "iscnet_test_mise.yaml", [
             ("upsampling_steps: 0", f"upsampling_steps: {MISE_STEPS}")])
         mise_metrics, mise_s, mise_launches, mise_dumps = cli_test(
-            mise_path, os.path.join(tmp, "mise"))
-        emit(phase="tester_mise", scenes=TESTER_SCENES, cli_s=mise_s,
+            mise_path, os.path.join(tmp, "mise"), TESTER_MISE_SCENES)
+        lap("cli_mise")
+        emit(phase="tester_mise", scenes=TESTER_MISE_SCENES, cli_s=mise_s,
+             phase_seconds=seconds,
              launches=mise_launches, dumps=mise_dumps, metrics={
                  k: v for k, v in mise_metrics.items()
                  if k.startswith(("mAP", "AR")) or "voxel IoU" in k})
-    check(mise_launches["fps"] == 5 * TESTER_SCENES
+    check(mise_launches["fps"] == 5 * TESTER_MISE_SCENES
           and mise_launches["cbn_decode"]
-          >= (3 + MISE_STEPS) * TESTER_SCENES,
+          >= (3 + MISE_STEPS) * TESTER_MISE_SCENES,
           f"kernel launches of the test path with MISE: {mise_launches}")
     check(mise_dumps["open_edges"] == 0 and dumps["open_edges"] == 0,
           "tester: dumped meshes not closed")
@@ -3181,6 +3230,7 @@ def phase_point_shard(model, data, reps: int = 3):
 PREP_MESHES = os.path.join(ROOT, "demo", "outputs", "scene0549_00")
 PREP_CATID = "04379243"  # ShapeNet's table synset: one category folder
 PREP_OPEN = "open_seeded"  # the seeded non-watertight model
+PREP_DEMO_MODELS = 7  # of the 13 demo meshes, the first by name
 PREP_RES = 256  # the CLI's default --resolution
 # the limits of a kernel against its plain version at full width: the
 # share of pixels whose coverage differs and of voxels off by over 1e-6
@@ -3259,8 +3309,8 @@ def prep_inputs(in_root: str) -> list:
     from rfdnet_tpu_torch.meshing.mesh import TriMesh, write_off
 
     names = []
-    for path in sorted(glob.glob(os.path.join(PREP_MESHES,
-                                              "proposal_*_mesh.ply"))):
+    for path in sorted(glob.glob(os.path.join(
+            PREP_MESHES, "proposal_*_mesh.ply")))[:PREP_DEMO_MODELS]:
         name = os.path.basename(path)[:-len("_mesh.ply")]
         os.makedirs(os.path.join(in_root, PREP_CATID, name))
         TriMesh.load(path).export(
@@ -3704,6 +3754,98 @@ def phase_profile_train() -> dict:
     return {f"profile_{key}": r["launches"] for key, r in zip(names, rows)}
 
 
+# the protocol run at a small depth: the generator's scenes, 1 variant a
+# class, 120000 raw points (its default); one epoch a stage at batch 4
+PROTOCOL_TRAIN, PROTOCOL_VAL, PROTOCOL_BATCH = 8, 2, 4
+
+
+def phase_protocol() -> dict:
+    """The protocol dataset and the three-stage protocol run at full width
+    and a small depth, in a temporary directory:
+    `rfdnet_tpu_torch.tools.gen_synthetic_dataset` (in-process) writes
+    PROTOCOL_TRAIN + PROTOCOL_VAL scenes, then
+    `rfdnet_tpu_torch.tools.protocol_run.main` (in-process) trains each
+    stage one epoch at batch 4 in a `python -m rfdnet_tpu_torch --mode
+    train` subprocess and runs the test protocol (mesh mAP) in this
+    process. Checks: every chunk exited 0 at its first try; each stage's
+    run directory logged `train epoch 0 done` and its schedule row; stage
+    2 and stage 3 finetuned from their predecessor's `.npz` and the test
+    loaded stage 3's, with no weight path missing; `metrics.json` holds
+    finite mAP and mesh mAP at 0.25 and 0.5, each voxel IoU a class's;
+    the test's launches FPS 5 and CBN 3 a scene (counts set to 0 just
+    before `main`; the chunks' launches are their processes'). Returns the
+    test stage's launches."""
+    import numpy as np
+
+    from rfdnet_tpu_torch.config import CLASS2TYPE
+    from rfdnet_tpu_torch.tools import gen_synthetic_dataset as gen
+    from rfdnet_tpu_torch.tools import protocol_run as pr
+
+    tmp = tempfile.mkdtemp(prefix="protocol_")
+    root, out = os.path.join(tmp, "ds"), os.path.join(tmp, "out")
+    cwd = os.getcwd()
+    try:
+        t0 = time.perf_counter()
+        gen.main(["--out", root, "--train", str(PROTOCOL_TRAIN), "--val",
+                  str(PROTOCOL_VAL), "--variants", "1"])
+        gen_s = time.perf_counter() - t0
+        os.chdir(tmp)
+        reset_launches()
+        t0 = time.perf_counter()
+        results, printed = run_logged(lambda: pr.main([
+            "--root", root, "--out", out, "--epochs", "1", "1", "1",
+            "--batch", str(PROTOCOL_BATCH), "--chunk", "1"]))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_launches()
+        logs = {}
+        for key, stage in (("detection", "stage1_detection"),
+                           ("completion", "stage2_completion"),
+                           ("joint", "stage3_joint")):
+            with open(os.path.join(pr._run_dir(os.path.join(out, stage)),
+                                   "log.txt")) as f:
+                logs[key] = f.read()
+        with open(os.path.join(out, "metrics.json")) as f:
+            saved = json.load(f)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    w = results["weights"]
+    for key, log in logs.items():
+        check("train epoch 0 done" in log
+              and [r["epoch"] for r in results["stages"][key]["schedule"]]
+              == [0], f"protocol {key}: no epoch 0 or schedule row")
+        chunks = results["chunks"][key]
+        check([(c["epochs"], c["tries"]) for c in chunks] == [(1, 1)],
+              f"protocol {key}: chunks {chunks}")
+    check(f"finetuned from {w['completion']}.npz" in logs["completion"]
+          and f"finetuned from {w['joint']}.npz" in logs["joint"]
+          and f"loaded weights {w['test']}.npz" in printed,
+          f"protocol: a stage did not load its predecessor {w}")
+    check("not found" not in printed + "".join(logs.values()),
+          "protocol: a weight path not found")
+    metrics = saved["metrics"]
+    voxel = sorted(k for k in metrics if k.endswith(" voxel IoU"))
+    check(all(np.isfinite(metrics[k]) for k in (
+        "mAP @0.25", "mAP @0.5", "mAP_mesh @0.25", "mAP_mesh @0.5"))
+          and all(k.removesuffix(" voxel IoU") in CLASS2TYPE.values()
+                  and 0 <= metrics[k] <= 1 for k in voxel),
+          f"protocol: metrics {sorted(metrics)}")
+    want = {"fps": 5 * PROTOCOL_VAL, "cbn_decode": 3 * PROTOCOL_VAL}
+    check(launches == want, f"protocol: test launches {launches}, "
+          f"expected {want}")
+    emit(phase="protocol", train=PROTOCOL_TRAIN, val=PROTOCOL_VAL,
+         batch=PROTOCOL_BATCH, points=pr.N_POINTS, generate_s=gen_s,
+         run_s=run_s, chunks=results["chunks"], epoch_s=results["epoch_s"],
+         test_s=results["test_s"],
+         test_s_per_scene=results["test_s"] / PROTOCOL_VAL,
+         launches=launches, voxel_iou_classes=len(voxel),
+         metrics={k: metrics[k] for k in (
+             "mAP @0.25", "mAP @0.5", "mAP_mesh @0.25", "mAP_mesh @0.5",
+             *voxel)})
+    return launches
+
+
 # the Tester's four ways for `sanity_modes`: f32, and each bf16 mode
 SANITY_MODES = {
     "f32": {},
@@ -3811,7 +3953,8 @@ def kernel_summary(fps_rows, fps_batch, fps_flag_off, cbn_rows, launches,
     in a one-rank group, `point_shard_bucketed` one `fps_bucketed` call,
     `ddp_train` / `ddp_val` a train and a val step in a one-rank group,
     `sanity_detection` / `sanity_completion` a run of the learning check's
-    CLI, `profile_<stage>` one call of a train-step profile stage),
+    CLI, `profile_<stage>` one call of a train-step profile stage,
+    `protocol_test` the protocol run's test stage over its val scenes),
     `detection_ms` the FPS calls of the
     detection path (SA1-4 and vote_fps), the FPS entry's `train_batch`
     its five calls of a train step at batch 8 and `flag_off` the kernel
@@ -3934,13 +4077,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    seconds, t0 = {}, time.perf_counter()
-
-    def done(name):  # the host-clock seconds of each phase
-        nonlocal t0
-        seconds[name] = round(time.perf_counter() - t0, 3)
-        t0 = time.perf_counter()
-
+    seconds, done = part_timer()  # the host-clock seconds of each phase
     phase_device()
     done("device")
     cfg, data, model = slice_setup(dev)
@@ -4000,6 +4137,8 @@ def main() -> int:
     launches.update(phase_profile_train())
     torch.cuda.empty_cache()
     done("profile_train")
+    launches["protocol_test"] = phase_protocol()
+    done("protocol")
     emit(phase="timing", seconds=seconds, total_s=sum(seconds.values()))
 
     print(json.dumps({"kernels": kernel_summary(

@@ -35,12 +35,14 @@ from .weights import init_seeded, load_npz
 def restore_weights(cfg: dict, model, log=print):
     """Seeded init from `cfg["seed"]`, then for each path under `weight:`
     a partial load of `<path>.npz` (the export of a JAX checkpoint
-    directory by `tools/export_torch_weights.py`, see `weights.load_npz`).
-    A path without its `.npz` is reported and the init kept."""
+    directory by `tools/export_torch_weights.py`, see `weights.load_npz`),
+    reported with its path. A path without its `.npz` is reported and the
+    init kept."""
     init_seeded(model, cfg.get("seed", 10))
     for w in cfg.get("weight", []):
         if os.path.isfile(f"{w}.npz"):
             load_npz(model, f"{w}.npz", log=log)
+            log(f"loaded weights {w}.npz")
         else:
             log(f"Warning: weight path {w} not found.")
     return model

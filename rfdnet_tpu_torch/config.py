@@ -5,7 +5,8 @@ Counterparts: `rfdnet_tpu/config/scannet.py` (dataset metadata: mean
 sizes, class names and ids, the heading codec) and
 `rfdnet_tpu/config/config.py` (defaults, eval settings, `build_model`).
 The machine with the card has no YAML package to count on, so `parse_yaml`
-reads the subset of YAML that the files of `configs/` use. `TEST_CONFIG`
+reads the subset of YAML that the files of `configs/` use, and `dump_yaml`
+writes it (the protocol run's stage configs). `TEST_CONFIG`
 holds the keys of `configs/iscnet_test.yaml` that the generation path
 reads, for callers without a file. CPU tests hold `parse_yaml` against
 PyYAML on every file of `configs/`, `TEST_CONFIG` against the YAML and
@@ -321,6 +322,46 @@ def _block(lines, i: int, indent: int):
     if i < len(lines) and lines[i][0] > indent:
         raise ValueError(f"unsupported YAML indentation at {lines[i][1]!r}")
     return out, i
+
+
+def _dump_scalar(value) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value or value in (float("inf"), float("-inf")):
+            raise ValueError(f"unsupported YAML value: {value!r}")
+        text = repr(value).lower()
+        # PyYAML's form: 1e-05 -> 1.0e-05 (a float, where 1e-05 is a string)
+        return text.replace("e", ".0e", 1) if "." not in text else text
+    if isinstance(value, str) and "'" not in value and "\n" not in value:
+        return f"'{value}'"
+    raise ValueError(f"unsupported YAML value: {value!r}")
+
+
+def dump_yaml(data: dict, indent: int = 0) -> str:
+    """`data` (nested dicts whose leaves are scalars or lists of scalars)
+    as the YAML subset that `parse_yaml` reads and PyYAML's `safe_load`
+    reads alike: block maps, block lists, `[]` / `{}` when empty, strings
+    single-quoted."""
+    pad = " " * indent
+    lines = []
+    for key, value in data.items():
+        if isinstance(value, dict) and value:
+            lines.append(f"{pad}{key}:\n{dump_yaml(value, indent + 2)}")
+        elif isinstance(value, dict):
+            lines.append(f"{pad}{key}: {{}}\n")
+        elif isinstance(value, (list, tuple)) and value:
+            lines.append(f"{pad}{key}:\n" + "".join(
+                f"{pad}- {_dump_scalar(v)}\n" for v in value))
+        elif isinstance(value, (list, tuple)):
+            lines.append(f"{pad}{key}: []\n")
+        else:
+            lines.append(f"{pad}{key}: {_dump_scalar(value)}\n")
+    return "".join(lines)
 
 
 # ---------------------------------------------------------------- config

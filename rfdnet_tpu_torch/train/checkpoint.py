@@ -109,4 +109,6 @@ class CheckpointIO:
             self.log(f"Warning: {weight_path} not found, training from "
                      "scratch.")
             return model
-        return load_npz(model, weight_path + ".npz", log=self.log)
+        load_npz(model, weight_path + ".npz", log=self.log)
+        self.log(f"finetuned from {weight_path}.npz")
+        return model

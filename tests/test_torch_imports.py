@@ -20,7 +20,7 @@ from rfdnet_tpu_torch import config as tconfig
 from rfdnet_tpu_torch import demo
 from rfdnet_tpu_torch.prep import scannet as prep_scannet
 from rfdnet_tpu_torch.prep import shapenet as prep_shapenet
-from rfdnet_tpu_torch.tools import profile_train, sanity_train
+from rfdnet_tpu_torch.tools import profile_train, protocol_run, sanity_train
 from torch_parity import TEST_YAML
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -97,4 +97,8 @@ def test_entry_points_without_device_or_cuda_raise(monkeypatch, tmp_path):
         sanity_train.main(["--save-to", str(tmp_path / "weights")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_train.main(["--trace", str(tmp_path / "trace.json")])
+    # the protocol run, before it reads the dataset or writes a config
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        protocol_run.main(["--root", str(tmp_path / "ds"), "--out",
+                           str(tmp_path / "out")])
     assert os.listdir(tmp_path) == []
