@@ -1,0 +1,7 @@
+"""The train steps' share of the card's peak over the window: the FLOPs
+of one step (forward and backward) counted on the plain reference at the
+cell's shapes (`FlopCounterMode`: its matrix products), times the steps
+completed in the window, over the window and the configuration's peak,
+in %."""
+
+from rfdbench.readers import mfu_pct as read  # noqa: F401
