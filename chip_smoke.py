@@ -48,11 +48,12 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    points, 256 proposals, 64 slots, 32^3 grids, seeded weights), ten
    scenes after a warm-up, twice: to the logit grids on the card
    (`demo.generate_grids`: `wall_ms`) and on to the meshes on the host
-   (`demo.generate`: `wall_mesh_ms`). Scene latency and per-stage times
-   (CUDA events; host clock for the copy to the host and the extraction)
+   (`demo.generate`: `wall_mesh_ms`). Scene latency and the stage times
+   of each span (`utils.profiling`, a `recording()` a scene: device ms
+   from the spans' CUDA events, host ms for `demo.d2h` and `demo.mesh`)
    as mean, min and max; triangles per scene and the extractor's thread
    count; the launch count of each kernel in each run's first timed scene
-   (counts set to 0 just before it).
+   (the launch counters read from a recording open since the start).
 5. mesh: on that scene's meshes, every edge of every mesh shared by
    exactly two faces, every vertex in the padded unit box, and identical
    arrays from the batch route, the per-proposal route and a second
@@ -240,6 +241,7 @@ tensor cores), NVIDIA's H100 SXM figures.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -860,15 +862,34 @@ def phase_cbn(model, dev, nb: int = 64, res: int = 32, reps: int = 3):
 OPTIONAL_LAUNCHES = ("cbn_decode_bf16", "render_depth", "tsdf_fuse")
 
 
-def reset_launches() -> None:
-    from rfdnet_tpu_torch.ops import furthest_point_sample, fused_cbn_decode
-    from rfdnet_tpu_torch.ops.fusion import render_depth, tsdf_fuse
+# each kernel's launch counter (`utils.profiling.count`)
+LAUNCH_COUNTERS = {"fps": "ops.fps.launches",
+                   "cbn_decode": "ops.cbn_decode.launches",
+                   "cbn_decode_bf16": "ops.cbn_decode.launches_bf16",
+                   "render_depth": "ops.render_depth.launches",
+                   "tsdf_fuse": "ops.tsdf_fuse.launches"}
+# the recording the launch counts come from: open from the first
+# `launch_recorder()` call to the end of the process
+_LAUNCH_RECORDING = contextlib.ExitStack()
+_launch_state = {"recorder": None, "base": {}}
 
-    furthest_point_sample.launches = 0
-    fused_cbn_decode.launches = 0
-    fused_cbn_decode.launches_bf16 = 0
-    render_depth.launches = 0
-    tsdf_fuse.launches = 0
+
+def launch_recorder():
+    """The recorder that counts the kernels' launches, opened at its first
+    call (`main` calls it first) and left open."""
+    if _launch_state["recorder"] is None:
+        from rfdnet_tpu_torch.utils import profiling
+
+        _launch_state["recorder"] = _LAUNCH_RECORDING.enter_context(
+            profiling.recording())
+        atexit.register(_LAUNCH_RECORDING.close)
+    return _launch_state["recorder"]
+
+
+def reset_launches() -> None:
+    rec = launch_recorder()
+    _launch_state["base"] = {k: rec.counter(c)
+                             for k, c in LAUNCH_COUNTERS.items()}
 
 
 def read_launches() -> dict:
@@ -878,16 +899,12 @@ def read_launches() -> dict:
     (`render_depth`, `tsdf_fuse`), so that a path's counts read as before
     and a launch of one of those on a path that should not make it fails
     its check."""
-    from rfdnet_tpu_torch.ops import furthest_point_sample, fused_cbn_decode
-    from rfdnet_tpu_torch.ops.fusion import render_depth, tsdf_fuse
-
-    counts = {"fps": furthest_point_sample.launches,
-              "cbn_decode": fused_cbn_decode.launches}
-    for name, n in (("cbn_decode_bf16", fused_cbn_decode.launches_bf16),
-                    ("render_depth", render_depth.launches),
-                    ("tsdf_fuse", tsdf_fuse.launches)):
-        if n:
-            counts[name] = n
+    rec, base = launch_recorder(), _launch_state["base"]
+    counts = {k: rec.counter(c) - base.get(k, 0)
+              for k, c in LAUNCH_COUNTERS.items()}
+    for name in OPTIONAL_LAUNCHES:
+        if not counts[name]:
+            del counts[name]
     return counts
 
 
@@ -919,34 +936,57 @@ def spread(values) -> dict:
             "max": max(values)}
 
 
+def span_ms(tables: list, key: str) -> dict:
+    """{span name: spread over the calls' `recording()` tables of each
+    call's `key` ("device_ms" or "host_ms")}, for the spans every call
+    opened and that have it."""
+    names = set.intersection(*(set(t) for t in tables))
+    return {name: spread([t[name][key] for t in tables]) for name in
+            sorted(names) if all(t[name][key] is not None for t in tables)}
+
+
+def span_means(rec) -> dict:
+    """{span name: calls, and the mean device and host ms a call} of a
+    recorder's table."""
+    out = {}
+    for name, row in rec.table()["spans"].items():
+        n = row["calls"]
+        out[name] = {"calls": n, "host_ms": row["host_ms"] / n,
+                     "device_ms": None if row["device_ms"] is None
+                     else row["device_ms"] / n}
+    return out
+
+
 def timed_scenes(run_scene, scenes: int) -> dict:
-    """One warm-up call of run_scene(marks), then `scenes` timed calls one
-    at a time (as the test protocol runs them), each ending in a
-    synchronise. Returns the window and single-scene times on the host
-    clock, the stage times between the CUDA events each call left in
-    `marks`, and the first timed call's launch counts and result."""
-    run_scene([])  # warm-up
+    """One warm-up call of run_scene(), then `scenes` timed calls one at
+    a time (as the test protocol runs them), each in a `recording()` of
+    its own and each ending in a synchronise. Returns the window and
+    single-scene times on the host clock, the device ms (`stage_ms`) and
+    host ms (`host_stage_ms`) of each span the calls opened, and the
+    first timed call's launch counts and result."""
+    from rfdnet_tpu_torch.utils import profiling
+
+    run_scene()  # warm-up
     torch.cuda.synchronize()
-    walls, stage_runs = [], []
+    walls, recorders = [], []
     t_window = time.perf_counter()
     for i in range(scenes):
         if i == 0:
             reset_launches()
-        marks = []
-        t0 = time.perf_counter()
-        out = run_scene(marks)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+        with profiling.recording() as rec:
+            t0 = time.perf_counter()
+            out = run_scene()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        recorders.append(rec)
         if i == 0:
             launches, first = read_launches(), out
-        stage_runs.append({name: marks[j - 1][1].elapsed_time(ev)
-                           for j, (name, ev) in enumerate(marks) if j})
     window = (time.perf_counter() - t_window) * 1e3
+    tables = [rec.table()["spans"] for rec in recorders]
     return dict(
         wall_ms=window / scenes, wall_ms_min=min(walls),
-        wall_ms_max=max(walls),
-        stage_ms={name: spread([r[name] for r in stage_runs])
-                  for name in stage_runs[0]},
+        wall_ms_max=max(walls), stage_ms=span_ms(tables, "device_ms"),
+        host_stage_ms=span_ms(tables, "host_ms"),
         launches=launches, first=first)
 
 
@@ -961,23 +1001,16 @@ def phase_slice(model, data, cfg, scenes: int = 10):
 
     pc = data["point_clouds"]
     to_grids = timed_scenes(
-        lambda marks: demo.generate_grids(cfg, model, pc, marks=marks), scenes)
+        lambda: demo.generate_grids(cfg, model, pc), scenes)
     _, parsed, gen, grids = to_grids.pop("first")
 
     generator = demo.make_generator(cfg, model)
-    host_runs = []
-
-    def to_meshes_scene(marks):
-        host_runs.append({})
-        return demo.generate(cfg, model, data, generator=generator,
-                             marks=marks, host_ms=host_runs[-1])
-
-    to_meshes = timed_scenes(to_meshes_scene, scenes)
+    to_meshes = timed_scenes(
+        lambda: demo.generate(cfg, model, data, generator=generator), scenes)
     parsed_m, gen_m, meshes = to_meshes.pop("first")
-    host_runs = host_runs[1:]  # without the warm-up
     stage_mesh = dict(to_meshes["stage_ms"])
-    for name in ("d2h", "mesh"):
-        stage_mesh[name] = spread([r[name] for r in host_runs])
+    for name in ("demo.d2h", "demo.mesh"):
+        stage_mesh[name] = to_meshes["host_stage_ms"][name]
     triangles = sum(len(m.faces) for m in meshes)
     res = cfg["generation"]["resolution_0"]
     emit(phase="slice", points=int(pc.shape[1]),
@@ -1036,12 +1069,9 @@ def phase_mesh_options(model, data, scenes: int = 2):
     gen = demo.make_generator(cfg, model)
     runs = []
 
-    def scene(marks):
-        host = {}
-        out = demo.generate(cfg, model, data, generator=gen, marks=marks,
-                            host_ms=host)
-        runs.append(dict(gen.last_ms, d2h=host["d2h"], mesh=host["mesh"],
-                         losses=gen.refine_losses))
+    def scene():
+        out = demo.generate(cfg, model, data, generator=gen)
+        runs.append(dict(gen.last_ms, losses=gen.refine_losses))
         return out
 
     res = timed_scenes(scene, scenes)
@@ -1063,7 +1093,9 @@ def phase_mesh_options(model, data, scenes: int = 2):
     tetra_ms = (time.perf_counter() - t0) * 1e3
     tetra_triangles = sum(len(m.faces) for m in tetra)
     stage = {k: spread([r[k] for r in runs]) for k in (
-        "extract", "simplify", "refine", "normals", "d2h", "mesh")}
+        "extract", "simplify", "refine", "normals")}
+    for name in ("demo.d2h", "demo.mesh"):
+        stage[name] = res["host_stage_ms"][name]
     reference = mesh_options_reference(model, cfg)
     emit(phase="mesh_options", options=MESH_OPTIONS, scenes=scenes,
          valid=int(valid.sum()), wall_ms=res["wall_ms"],
@@ -1184,8 +1216,8 @@ def phase_modules(model, data, scenes: int = 3):
     runs = {}
     for name, m in (("f32", model), ("bf16", bf16), ("bf16_2", bf16),
                     ("f32_2", model)):
-        runs[name] = timed_scenes(lambda marks, m=m: demo.generate_grids(
-            config.TEST_CONFIG, m, pc, marks=marks), scenes)
+        runs[name] = timed_scenes(lambda m=m: demo.generate_grids(
+            config.TEST_CONFIG, m, pc), scenes)
     g32, g16 = runs["f32"].pop("first")[3], runs["bf16"].pop("first")[3]
     for r in runs.values():
         r.pop("first", None)
@@ -1559,20 +1591,17 @@ def phase_mise(model, data, scenes: int = 3, reps: int = 3):
         cfg = config.load_config(cfg_path, mode="demo")
         res0 = cfg["generation"]["resolution_0"]
         generator = demo.make_generator(cfg, model)
-        host_runs = []
+        scene_levels = []
 
-        def scene(marks):
-            host_runs.append({})
-            out = demo.generate(cfg, model, data, generator=generator,
-                                marks=marks, host_ms=host_runs[-1])
-            host_runs[-1]["levels"] = generator.octree_levels
+        def scene():
+            out = demo.generate(cfg, model, data, generator=generator)
+            scene_levels.append(generator.octree_levels)
             return out
 
         run = timed_scenes(scene, scenes)
         lap("scenes")
         parsed, gen, meshes = run.pop("first")
-        host_runs = host_runs[1:]  # without the warm-up
-        levels = host_runs[0]["levels"]
+        levels = scene_levels[1]  # the first timed scene's
         level_launches = sum(lv["launches"] for lv in levels)
         # the octree once more, its decodes captured: the card's octree
         # against the host's, the replay against dense marching cubes
@@ -1642,8 +1671,8 @@ def phase_mise(model, data, scenes: int = 3, reps: int = 3):
              valid=int(gen["valid"].sum()), scenes=scenes,
              wall_mesh_ms=run["wall_ms"], wall_mesh_ms_min=run["wall_ms_min"],
              wall_mesh_ms_max=run["wall_ms_max"], stage_ms=run["stage_ms"],
-             download_ms=spread([r["d2h"] for r in host_runs]),
-             host_mc_ms=spread([r["mesh"] for r in host_runs]),
+             download_ms=run["host_stage_ms"]["demo.d2h"],
+             host_mc_ms=run["host_stage_ms"]["demo.mesh"],
              levels=levels, launches=run["launches"], triangles=triangles,
              open_edges=closed_meshes(meshes),
              replay_identical=replay_identical,
@@ -1851,8 +1880,7 @@ def phase_detection(dev, scenes: int = 3, num_points: int = 4096):
     model = weights.init_seeded(config.build_model(cfg, device=dev), SEED)
     pc = demo.load_demo_data(SCENE, num_points=cfg["data"]["num_point"],
                              device=dev)["point_clouds"]
-    run = timed_scenes(
-        lambda marks: demo.generate_grids(cfg, model, pc, marks=marks), scenes)
+    run = timed_scenes(lambda: demo.generate_grids(cfg, model, pc), scenes)
     ep, parsed, gen, grids = run.pop("first")
     small = demo.load_demo_data(SCENE, num_points=num_points,
                                 device=dev)["point_clouds"]
@@ -2118,12 +2146,14 @@ def phase_tester(dev, reps: int = 3):
         runs = []
         for overlap, t in ((True, tester), (False, tester),
                            (True, Tester(cfg, model, log=lambda m: None))):
+            t.recorder.clear()
             got = t.run(loader(), overlap=overlap)
             runs.append(dict(
                 overlap=overlap, mesh_map=t.evaluate_mesh_mAP,
                 wall_scene_ms=t.run_ms / TESTER_SCENES,
                 stage_ms={k: spread([ms[k] for ms in t.scene_ms])
                           for k in t.scene_ms[0]},
+                spans=span_means(t.recorder),
                 compute_metrics_ms=t.metrics_ms,
                 refit_sizes=t.refit_sizes,
                 metrics_max_diff=max(abs(got[k] - metrics[k])
@@ -2839,8 +2869,8 @@ def phase_decoder_bf16(model, cfg, data, serve_ms: float, scenes: int = 10,
     runs = {}
     for name, m, c in (("f32", model, cfg), ("bf16", bf16, bf16_cfg),
                        ("bf16_2", bf16, bf16_cfg), ("f32_2", model, cfg)):
-        runs[name] = timed_scenes(lambda marks, m=m, c=c: demo.generate_grids(
-            c, m, pc, marks=marks), scenes)
+        runs[name] = timed_scenes(lambda m=m, c=c: demo.generate_grids(
+            c, m, pc), scenes)
     _, _, gen32, g32 = runs["f32"].pop("first")
     _, _, gen16, g16 = runs["bf16"].pop("first")
     for r in runs.values():
@@ -2938,10 +2968,9 @@ def phase_decoder_bf16(model, cfg, data, serve_ms: float, scenes: int = 10,
         tester_launches = read_launches()
     finally:
         occnet.fused_cbn_decode = launch
-    ev = pending["events"]
     res = test_cfg["generation"]["resolution_0"]
     tester_row = dict(decodes=decodes, launches=tester_launches,
-                      generate_ms=ev[0].elapsed_time(ev[1]) if ev else None,
+                      generate_ms=pending["spans"]["generate"].device_ms(),
                       grid_dtype=tester.grid_mxu_dtype is torch.bfloat16)
 
     # the layer chain at decoder_bf16, card against CPU
@@ -4077,6 +4106,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    launch_recorder()  # the launch counters count from here
     seconds, done = part_timer()  # the host-clock seconds of each phase
     phase_device()
     done("device")

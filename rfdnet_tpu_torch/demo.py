@@ -32,7 +32,7 @@ from .eval.refit import _box_params_from_corners, fit_meshes_to_scan
 from .eval.tester import place_mesh_in_box
 from .meshing.generator import Generator3D
 from .meshing.mesh import TriMesh, write_ply
-from .models.iscnet import _mark
+from .utils.profiling import span
 from .utils.render import TAB20, write_scene_png
 from .utils.scene_viz import SceneRender, corners_to_center_vectors
 
@@ -55,13 +55,14 @@ def load_demo_data(path: str, num_points: int = 80_000,
         np.ascontiguousarray(points[choice][None])).to(dev)}
 
 
-def generate_grids(cfg: dict, model, point_clouds: torch.Tensor, marks=None):
+def generate_grids(cfg: dict, model, point_clouds: torch.Tensor):
     """Detection + completion + the occupancy of every selected proposal
     for one scene, all on the device of `point_clouds`. Returns
     (end_points, parsed, gen, grids): grids (G, r, r, r) logits with r =
     `generation.resolution_0` at `upsampling_steps` 0, else the device
     octree's `mise_device.MiseOutput`; for a model in the detection phase
-    gen and grids are None. `marks`: see `ISCNet.generate`."""
+    gen and grids are None. Spans: `ISCNet.generate`'s, and `demo.octree`
+    (the device octree's levels)."""
     gen_cfg = cfg["generation"]
     dense = gen_cfg["upsampling_steps"] == 0
     ec = eval_config(cfg)
@@ -71,14 +72,14 @@ def generate_grids(cfg: dict, model, point_clouds: torch.Tensor, marks=None):
         dump_threshold=gen_cfg["dump_threshold"],
         remove_empty_box=ec["remove_empty_box"],
         decode_grid_res=gen_cfg["resolution_0"] if dense else None,
-        grid_sample=gen_cfg["use_sampling"], marks=marks,
+        grid_sample=gen_cfg["use_sampling"],
     )
     grids = out.get("grids")
     if not dense and "gen" in out:
         gen = out["gen"]
-        grids = make_generator(cfg, model).run_octree(
-            gen["features"], gen["cls_codes"], gen["valid"].reshape(-1))
-        _mark(marks, "octree")
+        with span("demo.octree"):
+            grids = make_generator(cfg, model).run_octree(
+                gen["features"], gen["cls_codes"], gen["valid"].reshape(-1))
     return out["end_points"], out["parsed"], out.get("gen"), grids
 
 
@@ -119,8 +120,7 @@ def _to_numpy(d: dict) -> dict:
 
 
 def generate(cfg: dict, model, data: dict, post_processing: bool = False,
-             generator: Generator3D | None = None, marks=None,
-             host_ms: dict | None = None):
+             generator: Generator3D | None = None):
     """Detection + completion + mesh extraction for one scene. Returns
     (parsed, gen, meshes): numpy dicts (gen's `features` and `cls_codes`
     stay tensors on the device) and one `TriMesh` per slot, empty for an
@@ -128,12 +128,12 @@ def generate(cfg: dict, model, data: dict, post_processing: bool = False,
     of the boxes refit to the scan (`eval.refit.fit_meshes_to_scan`, on
     the device of the scan).
 
-    `generator`: from `make_generator`, kept over scenes. `marks`: see
-    `ISCNet.generate`. `host_ms`: a dict that receives the host-clock
-    milliseconds of the copy to the host (`d2h`: grids, parsed and gen)
-    and of the extraction (`mesh`); asking for them makes the host wait for
-    the device before the copy starts. The grids (or, with MISE, the
-    device octree's outputs) come from `generator.start`."""
+    `generator`: from `make_generator`, kept over scenes. The grids (or,
+    with MISE, the device octree's outputs) come from `generator.start`.
+    Spans: `ISCNet.generate`'s; `demo.grid_decode` (or with MISE
+    `demo.octree`) around `generator.start`; `demo.d2h`, the host's wait
+    for the scene's device work and the copies of grids, parsed and gen;
+    `demo.mesh`, the extraction."""
     if model.phase != "completion":
         raise ValueError(f"a model in the {model.phase} phase completes no "
                          "shapes: call generate_grids for its detections")
@@ -144,25 +144,20 @@ def generate(cfg: dict, model, data: dict, post_processing: bool = False,
         {"point_clouds": pc}, nms_iou=ec["nms_iou"],
         use_cls_nms=ec["cls_nms"],
         dump_threshold=cfg["generation"]["dump_threshold"],
-        remove_empty_box=ec["remove_empty_box"], marks=marks,
+        remove_empty_box=ec["remove_empty_box"],
     )
     gen = out["gen"]
     valid = gen["valid"].reshape(-1)
-    download = generator.start(gen["features"], gen["cls_codes"], valid)
-    _mark(marks, "grid_decode" if generator.upsampling_steps == 0
-          else "octree")
-    if host_ms is not None and pc.device.type == "cuda":
-        torch.cuda.synchronize(pc.device)
-    t0 = time.perf_counter()
-    parsed, gen = _to_numpy(out["parsed"]), _to_numpy(gen)
-    host = download.wait()
-    t1 = time.perf_counter()
-    meshes = generator.meshes_from(host, valid=gen["valid"].reshape(-1),
-                                   features=gen["features"],
-                                   cls_codes=gen["cls_codes"])
-    if host_ms is not None:
-        host_ms["d2h"] = (t1 - t0) * 1e3
-        host_ms["mesh"] = (time.perf_counter() - t1) * 1e3
+    with span("demo.grid_decode" if generator.upsampling_steps == 0
+              else "demo.octree"):
+        download = generator.start(gen["features"], gen["cls_codes"], valid)
+    with span("demo.d2h"):
+        parsed, gen = _to_numpy(out["parsed"]), _to_numpy(gen)
+        host = download.wait()
+    with span("demo.mesh"):
+        meshes = generator.meshes_from(host, valid=gen["valid"].reshape(-1),
+                                       features=gen["features"],
+                                       cls_codes=gen["cls_codes"])
     if post_processing:
         parsed = fit_meshes_to_scan(
             parsed, meshes, gen["proposal_ids"], gen["valid"],

@@ -19,6 +19,14 @@ in its GT box, at the scene's z-extent / 46, on 8 threads, for the mesh AP
 (`mAP_mesh`, `AR_mesh`); the dump threshold is then the eval config's
 `conf_thresh`.
 
+Each scene's stages are spans (`utils.profiling`), recorded in the
+Tester's own `recorder` (with the model's, `ISCNet.generate`'s): the
+root `tester.scene` twice a scene, once around `dispatch_step` (over
+`tester.dispatch`, `tester.generate`, `tester.octree`) and once, with
+the scene's unit handed over, around `consume_step` (over `tester.d2h`,
+`tester.mesh`, `tester.refit`, `tester.voxelize`, `tester.ap`), and
+`tester.dump` under the same unit. `scene_ms` reads them.
+
 `run` keeps one scene in flight: scene i's `consume_step` runs in a worker
 thread, on a CUDA stream of its own, while the main thread queues scene
 i+1's device work (the marching cubes library releases the interpreter
@@ -52,6 +60,8 @@ import torch
 
 from ..config import CLASS2TYPE, eval_config
 from ..meshing.generator import copies_done, host_copy
+from ..utils import profiling
+from ..utils.profiling import span
 from ..utils.scene_viz import SceneRender, corners_to_center_vectors
 from .ap_helper import (
     APCalculator,
@@ -154,7 +164,9 @@ class Tester:
         # the worker's stream: its refit runs beside the next scene's work
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
-        # per scene, the milliseconds of each stage (see `consume_step`)
+        # per scene, the milliseconds of each stage (see `consume_step`),
+        # read from the spans in `recorder`
+        self.recorder = profiling.Recorder()
         self.scene_ms: list[dict] = []
         self.refit_sizes: list[dict] = []
         self.run_ms = self.metrics_ms = None
@@ -164,32 +176,34 @@ class Tester:
         """Queue one scene's device work and the copies of its outputs to
         the host; return at once (with a card) with what `consume_step`
         needs."""
-        t0 = time.perf_counter()
+        with profiling.recording(self.recorder), \
+                span("tester.scene") as scene, \
+                span("tester.dispatch") as dispatch:
+            pending = self._dispatch(batch)
+        pending["unit"] = scene.unit
+        pending["spans"]["dispatch"] = dispatch
+        return pending
+
+    def _dispatch(self, batch: dict) -> dict:
         dev = self.device
         data = {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
                 for k in _DEVICE_KEYS if k in batch}
-        events = None
-        if dev.type == "cuda":
-            events = [torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True)]
-            events[0].record()
         ec = self.eval_config
-        out = self.model.generate(
-            data, nms_iou=ec["nms_iou"], use_cls_nms=ec["cls_nms"],
-            dump_threshold=self.dump_threshold,
-            remove_empty_box=ec["remove_empty_box"],
-            decode_grid_res=self._grid_res, grid_sample=self._sample_z,
-            grid_mxu_dtype=self.grid_mxu_dtype)
-        if events is not None:
-            events[1].record()
+        with span("tester.generate") as generate:
+            out = self.model.generate(
+                data, nms_iou=ec["nms_iou"], use_cls_nms=ec["cls_nms"],
+                dump_threshold=self.dump_threshold,
+                remove_empty_box=ec["remove_empty_box"],
+                decode_grid_res=self._grid_res, grid_sample=self._sample_z,
+                grid_mxu_dtype=self.grid_mxu_dtype)
+        spans = {"generate": generate}
         octree = None
         if self._octree and "gen" in out:
             gen = out["gen"]
-            octree = self.generator.start(gen["features"], gen["cls_codes"],
-                                          gen["valid"].reshape(-1))
-            if events is not None:
-                events.append(torch.cuda.Event(enable_timing=True))
-                events[2].record()
+            with span("tester.octree") as spans["octree"]:
+                octree = self.generator.start(
+                    gen["features"], gen["cls_codes"],
+                    gen["valid"].reshape(-1))
         host = {"parsed": {k: host_copy(v) for k, v in out["parsed"].items()}}
         if "gen" in out:
             host["gen"] = {k: host_copy(v) for k, v in out["gen"].items()
@@ -204,7 +218,7 @@ class Tester:
                 and self.generator.needs_decoder):
             decoder_inputs = (out["gen"]["features"], out["gen"]["cls_codes"])
         return {"batch": batch, "host": host, "done": copies_done(dev),
-                "octree": octree, "events": events, "dispatch_ms": _ms(t0),
+                "octree": octree, "spans": spans,
                 "decoder_inputs": decoder_inputs}
 
     def test_step(self, batch: dict) -> dict:
@@ -212,23 +226,29 @@ class Tester:
 
     def consume_step(self, pending: dict) -> dict:
         """The host half of a scene (and the refit, on the device). Its
-        stage times land in `scene_ms`: `dispatch` (host, queueing the
-        scene), `generate` (device, from the scene's first to its last
-        queued operation, as CUDA events), `octree` (device, with MISE),
-        `d2h` (waiting for the scene's device work and the copies of its
-        outputs), `mesh`, `refit`, `voxelize` (with the mesh mAP), `ap`
-        (voxel IoU and AP assembly); `run` adds `dump`."""
-        t0 = time.perf_counter()
-        if pending["done"] is not None:
-            pending["done"].synchronize()
-        octree = (pending["octree"].wait() if pending["octree"] is not None
-                  else None)
-        ms = {"dispatch": pending["dispatch_ms"], "d2h": _ms(t0)}
-        events = pending["events"]
-        if events is not None:
-            ms["generate"] = events[0].elapsed_time(events[1])
-            if len(events) > 2:
-                ms["octree"] = events[1].elapsed_time(events[2])
+        stage times land in `scene_ms`, each read from its span:
+        `dispatch` (host, queueing the scene), `generate` (device, from
+        the scene's first to its last queued operation, on a card only),
+        `octree` (device, with MISE, on a card only), `d2h` (waiting for
+        the scene's device work and the copies of its outputs), `mesh`,
+        `refit`, `voxelize` (with the mesh mAP), `ap` (voxel IoU and AP
+        assembly), all host ms; `run` adds `dump`."""
+        with profiling.recording(self.recorder), \
+                span("tester.scene", unit=pending["unit"]):
+            return self._consume(pending)
+
+    def _consume(self, pending: dict) -> dict:
+        with span("tester.d2h") as d2h:
+            if pending["done"] is not None:
+                pending["done"].synchronize()
+            octree = (pending["octree"].wait()
+                      if pending["octree"] is not None else None)
+        spans = pending["spans"]
+        ms = {"dispatch": spans["dispatch"].host_ms, "d2h": d2h.host_ms}
+        for name in ("generate", "octree"):
+            device_ms = spans[name].device_ms() if name in spans else None
+            if device_ms is not None:
+                ms[name] = device_ms
         host, batch = pending["host"], pending["batch"]
         parsed = {k: v.numpy() for k, v in host["parsed"].items()}
         gen = {k: v.numpy() for k, v in host.get("gen", {}).items()}
@@ -241,36 +261,55 @@ class Tester:
             losses["total"] = losses["completion loss"]
 
         meshes = None
-        t0 = time.perf_counter()
         features, cls_codes = pending.get("decoder_inputs") or (None, None)
-        if gen and "grids" in host:
-            meshes = self.generator.meshes_from_grids(
-                host["grids"].numpy(), gen["valid"].reshape(-1), features,
-                cls_codes)
-        elif gen and octree is not None:
-            meshes = self.generator.meshes_from(
-                octree, gen["valid"].reshape(-1), features, cls_codes)
-        ms["mesh"] = _ms(t0)
-        t0 = time.perf_counter()
+        with span("tester.mesh") as s:
+            if gen and "grids" in host:
+                meshes = self.generator.meshes_from_grids(
+                    host["grids"].numpy(), gen["valid"].reshape(-1),
+                    features, cls_codes)
+            elif gen and octree is not None:
+                meshes = self.generator.meshes_from(
+                    octree, gen["valid"].reshape(-1), features, cls_codes)
+        ms["mesh"] = s.host_ms
         refit_sizes = {}
-        if gen and meshes is not None and self.fit_to_scan:
-            parsed = fit_meshes_to_scan(
-                parsed, meshes, gen["proposal_ids"], gen["valid"],
-                point_clouds, self.dump_threshold, device=self.device,
-                stats=refit_sizes)
-        ms["refit"] = _ms(t0)
+        with span("tester.refit") as s:
+            if gen and meshes is not None and self.fit_to_scan:
+                parsed = fit_meshes_to_scan(
+                    parsed, meshes, gen["proposal_ids"], gen["valid"],
+                    point_clouds, self.dump_threshold, device=self.device,
+                    stats=refit_sizes)
+        ms["refit"] = s.host_ms
 
         mesh_pairs = gt_mesh_pairs = None
         if self.evaluate_mesh_mAP and meshes is not None:
-            t0 = time.perf_counter()
-            voxel_size = float(point_clouds[0, :, 2].max()
-                               - point_clouds[0, :, 2].min()) / 46.0
-            mesh_pairs = self._voxelize_meshes(meshes, parsed, gen,
-                                               voxel_size)
-            gt_mesh_pairs = self._voxelize_gt_meshes(batch, voxel_size)
-            ms["voxelize"] = _ms(t0)
+            with span("tester.voxelize") as s:
+                voxel_size = float(point_clouds[0, :, 2].max()
+                                   - point_clouds[0, :, 2].min()) / 46.0
+                mesh_pairs = self._voxelize_meshes(meshes, parsed, gen,
+                                                   voxel_size)
+                gt_mesh_pairs = self._voxelize_gt_meshes(batch, voxel_size)
+            ms["voxelize"] = s.host_ms
 
-        t0 = time.perf_counter()
+        with span("tester.ap") as s:
+            iou_stats, batch_pred, batch_gt = self._assemble(
+                host, batch, parsed, gen, mesh_pairs, gt_mesh_pairs)
+        ms["ap"] = s.host_ms
+        return {
+            "losses": losses,
+            "batch_pred_map_cls": batch_pred,
+            "batch_gt_map_cls": batch_gt,
+            "iou_stats": iou_stats,
+            "meshes": meshes,
+            "parsed": parsed,
+            "gen": gen,
+            "ms": ms,
+            "refit_sizes": refit_sizes,
+        }
+
+    def _assemble(self, host, batch, parsed, gen, mesh_pairs,
+                  gt_mesh_pairs):
+        """The voxel IoU of the valid slots and the AP's (class, box[,
+        mesh], score) tuples of the scene."""
         iou_stats = None
         if gen and "shape_voxels_bits" in host and "object_voxels" in batch:
             B, G, _ = gen["proposal_ids"].shape
@@ -291,18 +330,7 @@ class Tester:
             proposal_ids=gen.get("proposal_ids"))
         batch_gt = assembly_gt_map_cls(parse_groundtruths(batch),
                                        meshes=gt_mesh_pairs)
-        ms["ap"] = _ms(t0)
-        return {
-            "losses": losses,
-            "batch_pred_map_cls": batch_pred,
-            "batch_gt_map_cls": batch_gt,
-            "iou_stats": iou_stats,
-            "meshes": meshes,
-            "parsed": parsed,
-            "gen": gen,
-            "ms": ms,
-            "refit_sizes": refit_sizes,
-        }
+        return iou_stats, batch_pred, batch_gt
 
     def _voxelize_meshes(self, meshes, parsed, gen, voxel_size):
         """(B, G) nested lists: each valid slot's non-empty mesh placed in
@@ -436,12 +464,13 @@ class Tester:
                     x.record_stream(self._stream)
             out = self.consume_step(pending)
             if dump_dir is not None:
-                t0 = time.perf_counter()
                 batch = pending["batch"]
                 scan_idx = int(np.asarray(batch.get("scan_idx", [n]))[0])
-                self.visualize_step(out, batch, os.path.join(
-                    dump_dir, f"scene_{scan_idx:05d}"))
-                out["ms"]["dump"] = _ms(t0)
+                with profiling.recording(self.recorder), span(
+                        "tester.dump", unit=pending["unit"]) as s:
+                    self.visualize_step(out, batch, os.path.join(
+                        dump_dir, f"scene_{scan_idx:05d}"))
+                out["ms"]["dump"] = s.host_ms
         return out
 
     def run(self, loader, ap_iou_thresholds=(0.5,), max_scenes=None,

@@ -38,6 +38,7 @@ from ..ops import (
     get_3d_box_batch,
     nms_3d,
 )
+from ..utils.profiling import count, span
 from .backbone import Pointnet2Backbone
 from .common import set_compute_dtype
 from .losses import detection_loss, onet_loss
@@ -45,15 +46,6 @@ from .occnet import ONet, make_3d_grid
 from .proposal import ProposalModule
 from .skip_propagation import SkipPropagation
 from .voting import VotingModule
-
-
-def _mark(marks, name: str) -> None:
-    """Append (name, recorded CUDA event) to `marks` when it is a list:
-    the stage boundaries a caller times with `torch.cuda.Event`s."""
-    if marks is not None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
 
 
 def select_completion_proposals(objectness_probs, center, gt_center,
@@ -157,12 +149,16 @@ class ISCNet(nn.Module):
                 getattr(self, name).eval()
         return self
 
-    def detect(self, point_clouds, marks=None, generator=None):
-        """backbone -> voting -> proposal. Returns (end_points,
-        proposal_features (B, K, 128)). `generator`: see
-        `ProposalModule.forward`."""
-        end_points = self.backbone(point_clouds)
-        _mark(marks, "backbone")
+    def detect(self, point_clouds, generator=None):
+        """backbone -> voting -> proposal (spans `iscnet.backbone`,
+        `iscnet.voting_proposal`). Returns (end_points, proposal_features
+        (B, K, 128)). `generator`: see `ProposalModule.forward`."""
+        with span("iscnet.backbone"):
+            end_points = self.backbone(point_clouds)
+        with span("iscnet.voting_proposal"):
+            return self._vote_and_propose(end_points, generator)
+
+    def _vote_and_propose(self, end_points, generator):
         xyz = end_points["fp2_xyz"]
         features = end_points["fp2_features"]
         end_points["seed_inds"] = end_points["fp2_inds"]
@@ -174,10 +170,7 @@ class ISCNet(nn.Module):
         features = features / torch.clamp(norm, min=1e-8)
         end_points["vote_xyz"] = xyz
         end_points["vote_features"] = features
-        end_points, proposal_features = self.detection(
-            xyz, features, end_points, generator=generator)
-        _mark(marks, "voting_proposal")
-        return end_points, proposal_features
+        return self.detection(xyz, features, end_points, generator=generator)
 
     def _heading_angles(self, end_points):
         pred_heading_class = end_points["heading_scores"].argmax(dim=-1)
@@ -198,18 +191,19 @@ class ISCNet(nn.Module):
         B, P, _ = proposal_ids.shape
         pids = proposal_ids[..., 0].long()
         gt_ids = proposal_ids[..., 1].long()
-        sel_features = gather_points(proposal_features, pids)
-        pred_centers = gather_points(end_points["center"], pids)
-        heading_angles = torch.gather(self._heading_angles(end_points), 1,
-                                      pids)
-        if self.skip_propagate:
-            object_input_features, mask_loss = self.skip_propagation(
-                pred_centers, heading_angles, sel_features,
-                data["point_clouds"], data.get("point_instance_labels"),
-                torch.gather(data["object_instance_labels"], 1, gt_ids))
-        else:
-            object_input_features = sel_features
-            mask_loss = torch.zeros((), device=pids.device)
+        with span("iscnet.skip_propagation"):
+            sel_features = gather_points(proposal_features, pids)
+            pred_centers = gather_points(end_points["center"], pids)
+            heading_angles = torch.gather(self._heading_angles(end_points),
+                                          1, pids)
+            if self.skip_propagate:
+                object_input_features, mask_loss = self.skip_propagation(
+                    pred_centers, heading_angles, sel_features,
+                    data["point_clouds"], data.get("point_instance_labels"),
+                    torch.gather(data["object_instance_labels"], 1, gt_ids))
+            else:
+                object_input_features = sel_features
+                mask_loss = torch.zeros((), device=pids.device)
         T = data["object_points"].shape[2]
         input_points = torch.gather(
             data["object_points"], 1,
@@ -273,16 +267,16 @@ class ISCNet(nn.Module):
         return total
 
     def generate_detections(self, point_clouds, nms_iou=0.25,
-                            use_cls_nms=True, remove_empty_box=False,
-                            marks=None):
-        """Eval detection + box decode + NMS -> (end_points,
-        proposal_features, parsed)."""
-        end_points, proposal_features = self.detect(point_clouds, marks)
-        parsed = self.parse_predictions(
-            end_points, nms_iou, use_cls_nms, point_clouds=point_clouds,
-            remove_empty_box=remove_empty_box,
-        )
-        _mark(marks, "nms")
+                            use_cls_nms=True, remove_empty_box=False):
+        """Eval detection + box decode + NMS (span `iscnet.nms`: the host
+        NMS loop and its copies) -> (end_points, proposal_features,
+        parsed)."""
+        end_points, proposal_features = self.detect(point_clouds)
+        with span("iscnet.nms"):
+            parsed = self.parse_predictions(
+                end_points, nms_iou, use_cls_nms, point_clouds=point_clouds,
+                remove_empty_box=remove_empty_box,
+            )
         return end_points, proposal_features, parsed
 
     def _points_in_boxes(self, pc, centers, c, s, size, chunk: int = 32):
@@ -347,7 +341,7 @@ class ISCNet(nn.Module):
         }
 
     def generate_completion(self, end_points, proposal_features, parsed,
-                            data, dump_threshold=0.5, marks=None):
+                            data, dump_threshold=0.5):
         """The top-`generate_limit` NMS survivors above `dump_threshold`,
         skip-propagated into conditioning codes. With GT fields in `data`
         (`center_label`, `box_label_mask`, `sem_cls_label`), each proposal
@@ -358,7 +352,14 @@ class ISCNet(nn.Module):
 
         Returns proposal_ids (B, G, 3) [proposal, gt, class], valid
         (B, G), features (B*G, c_dim), cls_codes (B*G, num_class), centers,
-        heading_angles, mask_loss."""
+        heading_angles, mask_loss. All of it is the span
+        `iscnet.skip_propagation`."""
+        with span("iscnet.skip_propagation"):
+            return self._generate_completion(
+                end_points, proposal_features, parsed, data, dump_threshold)
+
+    def _generate_completion(self, end_points, proposal_features, parsed,
+                             data, dump_threshold):
         B, K = parsed["obj_prob"].shape
         G = min(self.generate_limit, K)
         eligible = parsed["pred_mask"] & (parsed["obj_prob"] > dump_threshold)
@@ -405,7 +406,6 @@ class ISCNet(nn.Module):
         sel_sem_scores = gather_points(end_points["sem_cls_scores"], top_ids)
         cls_codes = (sel_sem_scores >= sel_sem_scores.amax(
             dim=-1, keepdim=True)).float()
-        _mark(marks, "skip_propagation")
         return {
             "proposal_ids": proposal_ids,
             "valid": valid,
@@ -420,7 +420,7 @@ class ISCNet(nn.Module):
     def generate(self, data: dict, nms_iou=0.25, use_cls_nms=True,
                  dump_threshold=0.5, remove_empty_box=False,
                  export_voxels=True, decode_grid_res=None, grid_padding=0.1,
-                 grid_sample: bool = False, grid_mxu_dtype=None, marks=None):
+                 grid_sample: bool = False, grid_mxu_dtype=None):
         """Test-time forward: detection + NMS and, in the completion phase,
         completion conditioning. With `object_points` and
         `object_points_occ` in `data` (the GT objects' occupancy sets), also
@@ -431,54 +431,74 @@ class ISCNet(nn.Module):
         proposal's dense occupancy logit grid (`grids`, (B*G, nx, nx,
         nx)), at the prior-mean z or, with `grid_sample`, at `sample_z`'s
         draw, in `grid_mxu_dtype` operands (the decoder's own when None;
-        the Tester's `generation.decoder_impl`). `marks`: optional list
-        that receives a recorded CUDA event after each stage. Eval mode
-        only."""
+        the Tester's `generation.decoder_impl`). Eval mode only.
+
+        Spans: `iscnet.generate` over the call; `iscnet.backbone`,
+        `iscnet.voting_proposal`, `iscnet.nms`, `iscnet.skip_propagation`,
+        `iscnet.completion_loss` (with `object_points`) and
+        `iscnet.grid_decode` (with `decode_grid_res`), which counts the
+        grids decoded (`iscnet.slots_decoded`, B * G) and the valid ones
+        among them (`iscnet.slots_valid`, on the device)."""
         if self.training:
             raise RuntimeError("ISCNet.generate runs in eval mode")
+        with span("iscnet.generate"):
+            return self._generate(
+                data, nms_iou, use_cls_nms, dump_threshold, remove_empty_box,
+                export_voxels, decode_grid_res, grid_padding, grid_sample,
+                grid_mxu_dtype)
+
+    def _generate(self, data, nms_iou, use_cls_nms, dump_threshold,
+                  remove_empty_box, export_voxels, decode_grid_res,
+                  grid_padding, grid_sample, grid_mxu_dtype):
         pc = data["point_clouds"]
-        _mark(marks, "start")
         end_points, proposal_features, parsed = self.generate_detections(
             pc, nms_iou=nms_iou, use_cls_nms=use_cls_nms,
-            remove_empty_box=remove_empty_box, marks=marks,
+            remove_empty_box=remove_empty_box,
         )
         out = {"end_points": end_points, "parsed": parsed}
         if self.phase != "completion":
             return out
         gen = self.generate_completion(
             end_points, proposal_features, parsed, data,
-            dump_threshold=dump_threshold, marks=marks,
+            dump_threshold=dump_threshold,
         )
         out["gen"] = gen
         if "object_points" in data:
-            B, G, _ = gen["proposal_ids"].shape
-            gt_ids = gen["proposal_ids"][..., 1].long()
-            T = data["object_points"].shape[2]
-            input_points = torch.gather(
-                data["object_points"], 1,
-                gt_ids[..., None, None].expand(B, G, T, 3)).reshape(B * G, T, 3)
-            input_occ = torch.gather(
-                data["object_points_occ"], 1,
-                gt_ids[..., None].expand(B, G, T)).reshape(B * G, T)
-            loss, voxels = self.completion.compute_loss(
-                gen["features"], input_points, input_occ, gen["cls_codes"],
-                export_shape=export_voxels, valid_mask=gen["valid"].reshape(-1))
-            out["completion_loss"] = loss
-            if voxels is not None:
-                out["shape_voxels_bits"] = pack_bits(voxels.reshape(B * G, -1))
-            _mark(marks, "completion_loss")
+            with span("iscnet.completion_loss"):
+                self._completion_loss(data, gen, export_voxels, out)
         if decode_grid_res:
-            nx = int(decode_grid_res)
-            pts = (1.0 + grid_padding) * make_3d_grid(
-                (-0.5,) * 3, (0.5,) * 3, (nx,) * 3, device=pc.device)
-            Nb = gen["features"].shape[0]
-            logits = self.decode_occupancy(
-                gen["features"], gen["cls_codes"],
-                pts[None].expand(Nb, -1, -1), sample=grid_sample,
-                mxu_dtype=grid_mxu_dtype)
-            out["grids"] = logits.reshape(Nb, nx, nx, nx)
-            _mark(marks, "grid_decode")
+            with span("iscnet.grid_decode"):
+                nx = int(decode_grid_res)
+                pts = (1.0 + grid_padding) * make_3d_grid(
+                    (-0.5,) * 3, (0.5,) * 3, (nx,) * 3, device=pc.device)
+                Nb = gen["features"].shape[0]
+                logits = self.decode_occupancy(
+                    gen["features"], gen["cls_codes"],
+                    pts[None].expand(Nb, -1, -1), sample=grid_sample,
+                    mxu_dtype=grid_mxu_dtype)
+                out["grids"] = logits.reshape(Nb, nx, nx, nx)
+                count("iscnet.slots_decoded", Nb)
+                count("iscnet.slots_valid", gen["valid"])
         return out
+
+    def _completion_loss(self, data, gen, export_voxels, out) -> None:
+        """The eval completion loss of each slot's assigned GT object and,
+        with `export_voxels`, the 16^3 shape voxels, into `out`."""
+        B, G, _ = gen["proposal_ids"].shape
+        gt_ids = gen["proposal_ids"][..., 1].long()
+        T = data["object_points"].shape[2]
+        input_points = torch.gather(
+            data["object_points"], 1,
+            gt_ids[..., None, None].expand(B, G, T, 3)).reshape(B * G, T, 3)
+        input_occ = torch.gather(
+            data["object_points_occ"], 1,
+            gt_ids[..., None].expand(B, G, T)).reshape(B * G, T)
+        loss, voxels = self.completion.compute_loss(
+            gen["features"], input_points, input_occ, gen["cls_codes"],
+            export_shape=export_voxels, valid_mask=gen["valid"].reshape(-1))
+        out["completion_loss"] = loss
+        if voxels is not None:
+            out["shape_voxels_bits"] = pack_bits(voxels.reshape(B * G, -1))
 
     @torch.no_grad()
     def decode_occupancy(self, features, cls_codes, points, z=None,

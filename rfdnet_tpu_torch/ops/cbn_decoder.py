@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count
 from . import _native
 
 H = 256
@@ -142,7 +143,7 @@ def _decode_cuda(h0, scales, shifts, w0s, b0s, w1s, b1s, w_out, b_out):
                      h0, scales, shifts, w0s, b0s, w1s, b1s, w_out, b_out, out)),
                  Nb, Tp, 0, _native.stream(dev))
     _native.check_launch(err, "cbn_decode")
-    fused_cbn_decode.launches += 1
+    count("ops.cbn_decode.launches")
     return out[:, :T]
 
 
@@ -168,8 +169,8 @@ def _decode_cuda_bf16(h0, scales, shifts, w0s, b0s, w1s, b1s, w_out, b_out,
                      h0, scales, shifts, w_image, b0s, b1s, w_out, b_out, out)),
                  Nb, T, _native.stream(dev))
     _native.check_launch(err, "cbn_decode bf16")
-    fused_cbn_decode.launches += 1
-    fused_cbn_decode.launches_bf16 += 1
+    count("ops.cbn_decode.launches")
+    count("ops.cbn_decode.launches_bf16")
     return out
 
 
@@ -184,8 +185,9 @@ def fused_cbn_decode(h0, scales, shifts, w0s, b0s, w1s, b1s, w_out, b_out,
     version. The f32 kernel takes a float32 h0 and float32 weights; the
     bf16 kernel an h0 of float32 or bfloat16 and the weights as
     `w_image` (`bf16_weight_image(w0s, w1s)`, made here when None). Both
-    take contiguous float32 tables and biases. `launches` counts the
-    launches of both kernels, `launches_bf16` those of the bf16 one."""
+    take contiguous float32 tables and biases. The counter
+    `ops.cbn_decode.launches` counts the launches of both kernels,
+    `ops.cbn_decode.launches_bf16` those of the bf16 one."""
     _rounder(mxu_dtype)  # validates mxu_dtype
     if h0.device.type == "cpu":
         return cbn_decode_plain(h0, scales, shifts, w0s, b0s, w1s, b1s,
@@ -195,6 +197,3 @@ def fused_cbn_decode(h0, scales, shifts, w0s, b0s, w1s, b1s, w_out, b_out,
                                  w_out, b_out, w_image)
     return _decode_cuda(h0, scales, shifts, w0s, b0s, w1s, b1s, w_out, b_out)
 
-
-fused_cbn_decode.launches = 0
-fused_cbn_decode.launches_bf16 = 0

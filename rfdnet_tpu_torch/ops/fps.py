@@ -25,6 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils.profiling import count
 from . import _native
 
 SHARED_LIMIT = 232448      # bytes of shared memory one CTA can use (227 KB)
@@ -191,7 +192,7 @@ def _fps_cuda(xyz: torch.Tensor, npoint: int,
               skip_near_origin: bool = True) -> torch.Tensor:
     out = launch_route(xyz, npoint, fps_route(xyz.shape[1], xyz.shape[0]),
                        skip_near_origin=skip_near_origin)
-    furthest_point_sample.launches += 1
+    count("ops.fps.launches")
     return out
 
 
@@ -207,5 +208,3 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int,
         return fps_plain(xyz, npoint, skip_near_origin)
     return _fps_cuda(xyz, npoint, skip_near_origin)
 
-
-furthest_point_sample.launches = 0

@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count
 from . import _native
 
 _F64 = torch.float64
@@ -223,7 +224,7 @@ def _render_cuda(verts, tris, poses, f, cx, cy, width, height):
                  float(cy), width, height, _native.ptr(out),
                  _native.stream(dev))
     _native.check_launch(err, "render_depth")
-    render_depth.launches += 1
+    count("ops.render_depth.launches")
     return out
 
 
@@ -236,7 +237,8 @@ def render_depth(verts, tris, poses, f: float, cx: float, cy: float,
 
     CUDA tensors go to the kernel (every view in one launch; contiguous
     tensors of these types required), CPU tensors to the plain version.
-    `launches` counts the kernel's launches."""
+    The counter `ops.render_depth.launches` counts the kernel's
+    launches."""
     poses, single = _poses(poses)
     if verts.device.type == "cpu":
         out = render_depth_plain(verts, tris, poses, f, cx, cy, width,
@@ -245,8 +247,6 @@ def render_depth(verts, tris, poses, f: float, cx: float, cy: float,
         out = _render_cuda(verts, tris, poses, f, cx, cy, width, height)
     return out[0] if single else out
 
-
-render_depth.launches = 0
 
 
 def _fuse_cuda(depths, poses, f, cx, cy, res, bbox, trunc):
@@ -270,7 +270,7 @@ def _fuse_cuda(depths, poses, f, cx, cy, res, bbox, trunc):
                  float(cx), float(cy), res, *box, float(trunc),
                  _native.ptr(out), _native.stream(dev))
     _native.check_launch(err, "tsdf_fuse")
-    tsdf_fuse.launches += 1
+    count("ops.tsdf_fuse.launches")
     return out
 
 
@@ -282,12 +282,10 @@ def tsdf_fuse(depths, poses, f: float, cx: float, cy: float, res: int,
     res) float32 in [-1, 1], +1 where no view sees a voxel.
 
     A CUDA `depths` goes to the kernel (contiguous tensors of these types
-    required), a CPU one to the plain version. `launches` counts the
-    kernel's launches."""
+    required), a CPU one to the plain version. The counter
+    `ops.tsdf_fuse.launches` counts the kernel's launches."""
     poses, _ = _poses(poses)
     if depths.device.type == "cpu":
         return tsdf_fuse_plain(depths, poses, f, cx, cy, res, bbox, trunc)
     return _fuse_cuda(depths, poses, f, cx, cy, res, bbox, trunc)
 
-
-tsdf_fuse.launches = 0

@@ -26,6 +26,7 @@ import torch
 
 from ..collectives import DataGroup, global_sum
 from ..models.common import set_data_group
+from ..utils.profiling import span
 from .mesh import all_gather_rows, shard_batch
 
 # the 0-d outputs of `generate`: the global batch's eval losses, each a
@@ -59,7 +60,8 @@ def make_sharded_generate(model, group: DataGroup | None = None,
     group, one `generate` call on the batch (the one-card path). With
     one, this rank's rows (the batch size a multiple of the world size),
     then every output gathered: `grids`, `parsed`, `gen`, `end_points` in
-    global batch order on every rank. The model must be in eval mode."""
+    global batch order on every rank. The model must be in eval mode.
+    Each call is the root span `serve`."""
     grid_dtype = generate_kw.pop("grid_dtype", "float32")
     if grid_dtype not in ("float32", torch.float32):
         raise ValueError(f"grid_dtype {grid_dtype!r}: the port serves "
@@ -71,12 +73,13 @@ def make_sharded_generate(model, group: DataGroup | None = None,
             if n % group.world:
                 raise ValueError(f"a batch of {n} scenes over "
                                  f"{group.world} ranks")
-        before = model.data_group
-        set_data_group(model, group)
-        try:
-            out = model.generate(shard_batch(batch, group), **generate_kw)
-        finally:
-            set_data_group(model, before)
-        return out if group is None else _gather(out, group)
+        with span("serve"):
+            before = model.data_group
+            set_data_group(model, group)
+            try:
+                out = model.generate(shard_batch(batch, group), **generate_kw)
+            finally:
+                set_data_group(model, before)
+            return out if group is None else _gather(out, group)
 
     return serve

@@ -41,9 +41,11 @@ outside the tensor cores, which the f32 step runs (TF32 stays off in the
 port), and with `--bf16` also 989 TFLOP/s, the bf16 tensor-core rate of
 the shared MLPs' products (`data.mlp_bf16`, `mlp_dtype=torch.bfloat16`).
 
-Each stage also prints its kernel launches in one call (the FPS and CBN
-wrappers' counters), and the card's name and power limit (`nvidia-smi`)
-head the output. `--trace PATH` writes one `torch.profiler` trace (CPU and
+Each stage also prints its kernel launches in one call (the counters
+`ops.fps.launches` and `ops.cbn_decode.launches` of a `recording()`) and
+the spans that one more call opened (`spans`: device ms of each, on the
+CPU host ms; the train step's `train.*` and the model's `iscnet.*`), and
+the card's name and power limit (`nvidia-smi`) head the output. `--trace PATH` writes one `torch.profiler` trace (CPU and
 CUDA activity, Chrome format) of a `full_step` call to PATH and prints its
 device-busy share and its kernels by device time.
 
@@ -76,9 +78,10 @@ from ..models.occnet import ONet
 from ..models.proposal import ProposalModule
 from ..models.skip_propagation import SkipPropagation
 from ..models.voting import VotingModule
-from ..ops import ball_query, furthest_point_sample, fused_cbn_decode
+from ..ops import ball_query, furthest_point_sample
 from ..train.loop import to_device
 from ..train.trainer import Adam, freeze, make_optimizer_with_specs, train_step
+from ..utils import profiling
 from ..weights import init_seeded
 
 BATCH, POINTS = 8, 80_000
@@ -175,12 +178,21 @@ def count_flops(fn) -> int:
 
 def launches_of(fn, device: torch.device) -> dict:
     """The FPS and CBN kernel launches of one call of fn."""
-    furthest_point_sample.launches = 0
-    fused_cbn_decode.launches = 0
-    fn()
-    sync(device)
-    return {"fps": furthest_point_sample.launches,
-            "cbn_decode": fused_cbn_decode.launches}
+    with profiling.recording() as rec:
+        fn()
+        sync(device)
+    return {"fps": rec.counter("ops.fps.launches"),
+            "cbn_decode": rec.counter("ops.cbn_decode.launches")}
+
+
+def spans_of(fn) -> dict:
+    """{span name: ms} of the spans that one call of fn opened: the device
+    ms of each (summed over its calls), the host ms without a card."""
+    with profiling.recording() as rec:
+        fn()
+    return {name: row["host_ms"] if row["device_ms"] is None
+            else row["device_ms"]
+            for name, row in rec.table()["spans"].items()}
 
 
 def grads_of(loss: torch.Tensor, module: torch.nn.Module) -> tuple:
@@ -329,6 +341,9 @@ def profile(device, stages=None, iters: int = 8, bf16: bool = False,
                    pct_f32_peak=(100 * tflops * 1e12 / F32_PEAK
                                  if tflops else None),
                    launches=launches)
+        spans = spans_of(fn)
+        if spans:
+            row["spans"] = spans
         if bf16:
             row["pct_bf16_peak"] = (100 * tflops * 1e12 / BF16_PEAK
                                     if tflops else None)

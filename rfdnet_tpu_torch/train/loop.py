@@ -198,12 +198,12 @@ class Trainer:
             losses = dict(zip(keys, torch.stack(
                 [losses[k].float() for k in keys]).tolist()))
             t_end = time.perf_counter()
-            self.step_times.append(dict(
-                epoch=epoch, phase=phase, it=it,
-                loader_ms=(t_step - t_wait) * 1e3,
-                host_ms=(t_end - t_step) * 1e3,
-                device_ms=events[0].elapsed_time(events[1]) if cuda
-                else None))
+            self.step_times.append({
+                "epoch": epoch, "phase": phase, "it": it,
+                "loader_ms": (t_step - t_wait) * 1e3,
+                "host_ms": (t_end - t_step) * 1e3,
+                "device_ms": events[0].elapsed_time(events[1]) if cuda
+                else None})
             recorder.update_loss(losses)
             it += 1
             if it % print_step == 0:

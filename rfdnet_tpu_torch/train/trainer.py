@@ -36,6 +36,7 @@ from torch import nn
 
 from ..collectives import global_sum
 from ..parallel.mesh import all_reduce_grads
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,17 +153,24 @@ def train_step(model, optimizer: Adam, batch: dict, lr: float,
     `generator`: the posterior noise (see `ISCNet.forward`; with a data
     group, this rank's rows of it). With a `model.data_group`, `batch`
     is this rank's rows of a global batch, see the module docstring.
-    Returns the loss terms, detached."""
-    group = model.data_group
-    for p in optimizer.params:
-        p.grad = None
-    model.train()
-    out = model(batch, eps=eps, generator=generator)
-    losses = model.loss(out, batch, completion_weight)
-    losses["total"].backward()
-    all_reduce_grads(optimizer.params, group)
-    optimizer.step(lr)
-    return _global_terms(losses, group)
+    Returns the loss terms, detached. Spans: the root `train.step` over
+    `train.forward`, `train.loss`, `train.backward` and `train.adam`
+    (the gradients' all-reduce lies between the last two)."""
+    with span("train.step"):
+        group = model.data_group
+        for p in optimizer.params:
+            p.grad = None
+        model.train()
+        with span("train.forward"):
+            out = model(batch, eps=eps, generator=generator)
+        with span("train.loss"):
+            losses = model.loss(out, batch, completion_weight)
+        with span("train.backward"):
+            losses["total"].backward()
+        all_reduce_grads(optimizer.params, group)
+        with span("train.adam"):
+            optimizer.step(lr)
+        return _global_terms(losses, group)
 
 
 @torch.no_grad()

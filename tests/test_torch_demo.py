@@ -40,6 +40,7 @@ from rfdnet_tpu_torch import cli, config as tconfig, demo, weights
 from rfdnet_tpu_torch.meshing.generator import Generator3D
 from rfdnet_tpu_torch.meshing.mesh import TriMesh
 from rfdnet_tpu_torch.models import ProposalModule
+from rfdnet_tpu_torch.utils import profiling
 from torch_parity import (
     TEST_YAML,
     apply_flax,
@@ -202,10 +203,11 @@ def test_generate_matches_jax_demo(pair, demo_outputs):
 def test_generate_reuses_the_generator_and_times_the_host(pair, demo_outputs):
     cfg, data, (parsed, gen, meshes), _ = demo_outputs
     generator = demo.make_generator(cfg, pair[2])
-    host_ms = {}
-    again = demo.generate(cfg, pair[2], data, generator=generator,
-                          host_ms=host_ms)
-    assert sorted(host_ms) == ["d2h", "mesh"]
+    with profiling.recording() as rec:
+        again = demo.generate(cfg, pair[2], data, generator=generator)
+    host_ms = {name: row["host_ms"] for name, row in
+               rec.table()["spans"].items() if name.startswith("demo.")}
+    assert sorted(host_ms) == ["demo.d2h", "demo.grid_decode", "demo.mesh"]
     assert all(v >= 0 for v in host_ms.values())
     for a, b in zip(again[2], meshes):
         np.testing.assert_array_equal(a.vertices, b.vertices)

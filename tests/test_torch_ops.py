@@ -15,6 +15,7 @@ import torch
 
 from rfdnet_tpu import ops as jops
 from rfdnet_tpu_torch import ops as tops
+from rfdnet_tpu_torch.utils import profiling
 from torch_parity import assert_close, assert_equal, t
 
 
@@ -41,10 +42,10 @@ def test_fps_matches_jax(dup, near_origin, npoint):
 
 def test_fps_cpu_wrapper_takes_plain_and_counts_nothing():
     xyz = t(_cloud(1, 1, 300))
-    before = tops.furthest_point_sample.launches
-    assert_equal(tops.furthest_point_sample(xyz, 50),
-                 tops.fps.fps_plain(xyz, 50))
-    assert tops.furthest_point_sample.launches == before
+    with profiling.recording() as rec:
+        assert_equal(tops.furthest_point_sample(xyz, 50),
+                     tops.fps.fps_plain(xyz, 50))
+    assert rec.counter("ops.fps.launches") == 0
 
 
 @pytest.mark.parametrize("radius,nsample,M", [(0.2, 64, 256), (0.8, 16, 64),
