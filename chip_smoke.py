@@ -7,7 +7,7 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
 
 1. device: the card's name and power limit (`nvidia-smi`), then the
    CUDA kernels (`nvcc`: FPS, the CBN decoder's f32 and bf16 kernels, the
-   prep's depth raster and TSDF fusion) and the host libraries (`g++`:
+   prep's depth raster and TSDF fusion, Adam) and the host libraries (`g++`:
    the meshing, the QEM simplification and the KD-tree) built from
    `rfdnet_tpu_torch/csrc/` at once, with each kernel instantiation's
    registers, spills and static shared memory as `ptxas` reports them
@@ -44,6 +44,11 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    (see `cbn_row` for the bf16 reference, limits and controls). Every later phase that holds the
    f32 kernel to its plain version on a path's captured operands holds
    the bf16 kernel to its own on the same operands (`CBN_BF16_ROWS`).
+   Then adam: the multi-tensor Adam kernel (csrc/adam.cu) against
+   `adam_update_plain` on the stage-3 model's leaves plus a spec with
+   weight decay and an LR scale, three steps on card tensors from the
+   same gradients: p, mu and nu bit for bit, one launch a step, the
+   kernel's ms against its bound by bytes (see `phase_adam`).
 4. slice: the test config's generation path at full width (80000
    points, 256 proposals, 64 slots, 32^3 grids, seeded weights), ten
    scenes after a warm-up, twice: to the logit grids on the card
@@ -131,8 +136,8 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    `weight: []`, `epochs: 3` and this script's seed: `rfdnet_tpu_torch.
    cli.main --mode train` on the card, three Adam steps at batch 8 and
    three val steps. Per step: loader wait, host and device ms, every
-   loss term (all finite), the kernel launches (FPS 5 and CBN 0 a train
-   step, FPS 5 and CBN 1 a val step); peak device memory; `model_best`
+   loss term (all finite), the kernel launches (FPS 5, CBN 0 and Adam 1 a
+   train step, FPS 5 and CBN 1 a val step); peak device memory; `model_best`
    and `model_last` load through `weights.load_npz`; a fourth epoch with
    `resume: true` starts from epoch 3 (these runs read their items on the
    CLI's default route, threads). Then stages 1
@@ -213,7 +218,7 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
    scored by the Tester on the tool's 4 held-out scenes: every loss term
    finite, the frozen parameters bit-equal in the two saved files, the
    printed metric keys the JAX tool's, launches FPS 5 a step and a scored
-   scene, CBN 2 a scored scene in the completion phase (see
+   scene, Adam 1 a step, CBN 2 a scored scene in the completion phase (see
    `phase_sanity`). `sanity_modes` (not a phase; run it on its own)
    scores trained completion weights at f32 and at each bf16 mode.
 20. profile_train: `rfdnet_tpu_torch.tools.profile_train --iters 2
@@ -859,7 +864,8 @@ def phase_cbn(model, dev, nb: int = 64, res: int = 32, reps: int = 3):
 
 
 # the kernels a path shows in `read_launches` only where it launched them
-OPTIONAL_LAUNCHES = ("cbn_decode_bf16", "render_depth", "tsdf_fuse")
+OPTIONAL_LAUNCHES = ("cbn_decode_bf16", "render_depth", "tsdf_fuse",
+                     "adam")
 
 
 # each kernel's launch counter (`utils.profiling.count`)
@@ -867,7 +873,8 @@ LAUNCH_COUNTERS = {"fps": "ops.fps.launches",
                    "cbn_decode": "ops.cbn_decode.launches",
                    "cbn_decode_bf16": "ops.cbn_decode.launches_bf16",
                    "render_depth": "ops.render_depth.launches",
-                   "tsdf_fuse": "ops.tsdf_fuse.launches"}
+                   "tsdf_fuse": "ops.tsdf_fuse.launches",
+                   "adam": "ops.adam.launches"}
 # the recording the launch counts come from: open from the first
 # `launch_recorder()` call to the end of the process
 _LAUNCH_RECORDING = contextlib.ExitStack()
@@ -2377,7 +2384,8 @@ def phase_loader(cfg3: str, tmp: str, workers: int = 8) -> dict:
     check(all(r["steps"] >= 4 for r in runs.values()),
           f"loader: train runs of {[r['steps'] for r in runs.values()]} "
           "steps")
-    check(all(v == {"fps": 5, "cbn_decode": 0} for v in launches.values()),
+    check(all(v == {"fps": 5, "cbn_decode": 0, "adam": 1}
+              for v in launches.values()),
           f"loader: launches of a batch-8 train step {launches}")
     return dict(passes=passes, train_runs=runs, launches=launches)
 
@@ -2485,6 +2493,153 @@ def train_reference(dev, num_points: int = 4096) -> dict:
                 selected=int(c["pids"].shape[1]))
 
 
+ADAM_STEPS = 3
+# the spec with weight decay and an LR scale that the `adam` phase gives
+# the completion network (the configurations ship neither)
+ADAM_OVERRIDE = {"lr": 2.5e-5, "weight_decay": 1e-2, "betas": [0.8, 0.99]}
+
+
+def library_adam(opt, grads, lr: float, reps: int) -> tuple:
+    """The library's update on the same leaves: `torch._fused_adam_`,
+    what `torch.optim.Adam(fused=True)` runs, one call a spec as it makes
+    one a parameter group (coupled L2, eps after the square root), on
+    copies of `opt`'s parameters and moments with `grads`. Returns its
+    CUDA-event ms a step (the calls alone, the step counters set
+    beforehand) and the largest difference of its parameters after one
+    step from the plain version's (which the kernel equals bit for bit):
+    the roundings differ, sqrt(nu) / sqrt(c2) there for sqrt(nu / c2)."""
+    from rfdnet_tpu_torch.train import trainer as tt
+
+    step = opt.count + 1
+    calls = []
+    for k, spec in enumerate(opt.groups):
+        leaves = [i for i, j in enumerate(opt.spec_index) if j == k]
+        p, m, v = ([t[i].detach().clone() for i in leaves]
+                   for t in (opt.params, opt.mu, opt.nu))
+        steps = [torch.full((), float(step), device=p[0].device)
+                 for _ in leaves]
+        calls.append((spec, leaves, p, [grads[i] for i in leaves], m, v,
+                      steps))
+    plain = [t.detach().clone() for t in opt.params]
+    tt.adam_update_plain(plain, grads, [t.clone() for t in opt.mu],
+                         [t.clone() for t in opt.nu], opt.spec_index,
+                         opt.groups, step, lr)
+
+    def update():
+        for spec, _, p, g, m, v, steps in calls:
+            torch._fused_adam_(
+                p, g, m, v, [], steps, lr=lr * spec.lr_scale,
+                beta1=spec.betas[0], beta2=spec.betas[1],
+                weight_decay=spec.weight_decay, eps=spec.eps, amsgrad=False,
+                maximize=False, grad_scale=None, found_inf=None)
+
+    update()
+    torch.cuda.synchronize()
+    err = max(float((p[n] - plain[i]).abs().max())
+              for _, leaves, p, *_ in calls for n, i in enumerate(leaves))
+    return cuda_ms(update, reps), err
+
+
+def phase_adam(dev, reps: int = 20) -> dict:
+    """The Adam kernel against its plain version (see the module
+    docstring): the stage-3 model's leaves, every submodule trainable,
+    and the completion network's by `ADAM_OVERRIDE`; `ADAM_STEPS` steps
+    through `Adam.step` (the kernel) and through `adam_update_plain` on
+    card tensors from the same seeded gradients (a third of each leaf's
+    values exactly 0), p, mu and nu equal bit for bit after each, one
+    launch a step. Times: the kernel alone (CUDA events over `reps`
+    launches on one table), a whole `Adam.step` (table, copy, launch) on
+    the card's clock and on the host's, the plain version's and the
+    library's (`library_adam`); the bound by bytes (p, g, mu, nu read, p, mu, nu written once)."""
+    import copy
+
+    from rfdnet_tpu_torch import config
+    from rfdnet_tpu_torch.train import trainer as tt
+
+    cfg = config.load_config(TRAIN_YAML, mode="train")
+    model = config.build_model(cfg, device=dev, mode="train")
+    plain_model = copy.deepcopy(model)
+    overrides = {**cfg["model"], "completion": {
+        **cfg["model"]["completion"], "optimizer": ADAM_OVERRIDE}}
+    spec_of = tt.make_optimizer_with_specs(cfg["optimizer"], overrides)
+    opt = tt.Adam(tt.freeze(model, ()), spec_of)
+    params = [p for _, p in tt.freeze(plain_model, ())]
+    mu = [torch.zeros_like(p) for p in params]
+    nu = [torch.zeros_like(p) for p in params]
+    lr = float(cfg["optimizer"]["lr"])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    steps = []
+    for step in range(1, ADAM_STEPS + 1):
+        grads = []
+        for p in opt.params:
+            g = torch.randn(p.shape, generator=gen, device=dev)
+            g.view(-1)[::3] = 0.0
+            grads.append(g)
+        for p, g in zip(opt.params, grads):
+            p.grad = g.clone()
+        reset_launches()
+        opt.step(lr)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        tt.adam_update_plain(params, grads, mu, nu, opt.spec_index,
+                             opt.groups, step, lr)
+        torch.cuda.synchronize()
+        unequal = {what: sum(not torch.equal(a, b) for a, b in zip(x, y))
+                   for what, x, y in (("p", opt.params, params),
+                                      ("mu", opt.mu, mu), ("nu", opt.nu, nu))}
+        err = max(float((a.detach() - b.detach()).abs().max())
+                  for a, b in zip(opt.params + opt.mu + opt.nu,
+                                  params + mu + nu))
+        steps.append(dict(step=step, launches=launches,
+                          unequal_leaves=unequal, max_abs_err=err))
+    elements = sum(p.numel() for p in opt.params)
+    lib = tt._adam_lib()
+    grads = [p.grad for p in opt.params]
+    host, n_chunks = tt.adam_table(
+        opt.params, grads, opt.mu, opt.nu, opt.spec_index, opt.groups,
+        ADAM_STEPS + 1, lr, lib.rfd_adam_chunk(), tt._pinned)
+    table = host.to(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        check(lib.rfd_adam_launch(table.data_ptr(), len(opt.params),
+                                  len(opt.groups), n_chunks, stream) == 0,
+              "adam: the launch failed")
+
+    ms = cuda_ms(launch, reps)
+    step_ms = cuda_ms(lambda: opt.step(lr), reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        opt.step(lr)
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    plain_ms = cuda_ms(lambda: tt.adam_update_plain(
+        params, grads, mu, nu, opt.spec_index, opt.groups, 1, lr), 3)
+    library_ms, library_err = library_adam(opt, grads, lr, reps)
+    bound, by = bound_ms(28.0 * elements, 0.0, 1.0)
+    row = dict(leaves=len(opt.params), elements=elements,
+               specs=[dataclasses.asdict(g) for g in opt.groups],
+               leaves_per_spec=[opt.spec_index.count(k)
+                                for k in range(len(opt.groups))],
+               chunks=n_chunks, steps=steps, ms=ms, step_ms=step_ms,
+               step_host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by, library_ms=library_ms,
+               library_max_abs_err=library_err,
+               max_abs_err=max(s["max_abs_err"] for s in steps),
+               launches=steps[0]["launches"].get("adam", 0))
+    emit(phase="adam", **row)
+    check(len(opt.groups) == 2 and min(row["leaves_per_spec"]) > 0,
+          f"adam: specs {row['specs']} over {row['leaves_per_spec']} leaves")
+    for st in steps:
+        check(st["launches"] == {"fps": 0, "cbn_decode": 0, "adam": 1},
+              f"adam: launches of step {st['step']}: {st['launches']}")
+        check(not any(st["unequal_leaves"].values()),
+              f"adam: step {st['step']} differs from the plain version: "
+              f"{st['unequal_leaves']} leaves, {st['max_abs_err']}")
+    return row
+
+
 def phase_train(dev):
     """Training (see the module docstring). Returns the launches of one
     train step and one val step at full width."""
@@ -2567,7 +2722,7 @@ def phase_train(dev):
     check(len(train_steps) == 3 and len(val_steps) == 3,
           f"train: {len(train_steps)} train and {len(val_steps)} val steps")
     check(finite, "train: a loss is not finite")
-    check(all(s["launches"] == {"fps": 5, "cbn_decode": 0}
+    check(all(s["launches"] == {"fps": 5, "cbn_decode": 0, "adam": 1}
               for s in train_steps),
           "train: launches of the train steps "
           f"{[s['launches'] for s in train_steps]}")
@@ -3167,7 +3322,8 @@ def phase_ddp(dev, reps: int = 3):
     check(row["steps"] == ["train", "val"] * DDP_EPOCHS,
           f"ddp: steps {row['steps']}")
     for s in group_steps:
-        want = {"fps": 5, "cbn_decode": 0 if s["phase"] == "train" else 1}
+        want = ({"fps": 5, "cbn_decode": 0, "adam": 1}
+                if s["phase"] == "train" else {"fps": 5, "cbn_decode": 1})
         check(s["launches"] == want, f"ddp: launches {s}")
     check(errors["first_loss_rel"] <= 1e-5
           and errors["first_stats_rel"] <= 1e-5,
@@ -3717,7 +3873,8 @@ def phase_sanity() -> dict:
                   f"sanity {phase}: printed keys {keys}")
             val = 4  # the tool's held-out scenes
             want = {"fps": 5 * (steps + val),
-                    "cbn_decode": 2 * val if phase == "completion" else 0}
+                    "cbn_decode": 2 * val if phase == "completion" else 0,
+                    "adam": steps}
             check(counts == want, f"sanity {phase}: launches {counts}, "
                   f"expected {want}")
             launches[f"sanity_{phase}"] = counts
@@ -3744,6 +3901,9 @@ def phase_sanity() -> dict:
 PROFILE_FPS = {"full_step": 5, "det_step": 5, "backbone_fwd": 4,
                "backbone_bwd": 4, "fps_sa1": 1, "ballq_sa1": 0,
                "vote_prop": 1, "skip_prop": 0, "onet_loss": 0}
+# the Adam launches of one call of each stage: one a train step, none in
+# the stages that stop before the update
+PROFILE_ADAM = {"full_step": 1, "det_step": 1}
 
 
 def phase_profile_train() -> dict:
@@ -3751,9 +3911,9 @@ def phase_profile_train() -> dict:
     in-process at its full size (batch 8 x 80000 points): every stage a
     positive time, FLOPs counted for every stage but FPS's and ball
     query's (`full_step`'s nonzero), each stage's FPS launches a call as
-    PROFILE_FPS says and no CBN launch (train mode decodes layer by
-    layer), the trace written with device events. Returns each stage's
-    launches a call."""
+    PROFILE_FPS says, no CBN launch (train mode decodes layer by
+    layer) and the Adam launches PROFILE_ADAM says, the trace written
+    with device events. Returns each stage's launches a call."""
     from rfdnet_tpu_torch.tools import profile_train as pt
 
     tmp = tempfile.mkdtemp(prefix="profile_train_")
@@ -3775,7 +3935,8 @@ def phase_profile_train() -> dict:
         check(r["ms"] > 0 and (r["flops"] is None if key in pt.NO_FLOPS
                                else r["flops"] > 0),
               f"profile_train: {r}")
-        check(r["launches"] == {"fps": PROFILE_FPS[key], "cbn_decode": 0},
+        check(r["launches"] == {"fps": PROFILE_FPS[key], "cbn_decode": 0,
+                                "adam": PROFILE_ADAM.get(key, 0)},
               f"profile_train {key}: launches {r['launches']}")
     emit(phase="profile_train", rows=rows, trace={
         k: traced[k] for k in ("window_ms", "device_busy_ms", "idle_share",
@@ -3969,7 +4130,7 @@ def sanity_modes(weights: str, points: int = 20000, scenes: int = 32,
 
 
 def kernel_summary(fps_rows, fps_batch, fps_flag_off, cbn_rows, launches,
-                   test_cbn, mise_cbn, prep):
+                   test_cbn, mise_cbn, prep, adam):
     """One entry per kernel. `launches` and the times are the main path's
     (to the grids): FPS summed over its five calls there, the CBN decoder
     in the test config's f32 mode; `launches_by_path` has every driven
@@ -4004,7 +4165,10 @@ def kernel_summary(fps_rows, fps_batch, fps_flag_off, cbn_rows, launches,
     the CLI over `models` models, one launch of each a model; 0 on every
     other path, the ScanNet prep's `prep_scannet` among them): times,
     errors and bounds at full width on the first demo mesh, and `shapes`
-    on both models of the phase."""
+    on both models of the phase. The `adam` entry's `launches` are a
+    full-width train step's, its times and errors `phase_adam`'s (the
+    `profile_*` paths count FPS and CBN alone, `profile_train.launches_of`,
+    so they read 0 there)."""
     f32, bf16 = cbn_rows["float32"], cbn_rows["bfloat16"]
     main = [r for r in fps_rows if r["name"] != "vote_fps"]
     detection = [r for r in fps_rows if r["name"] != "seed_fps"]
@@ -4073,6 +4237,15 @@ def kernel_summary(fps_rows, fps_batch, fps_flag_off, cbn_rows, launches,
                  for name, row in CBN_BF16_ROWS.items()}),
         *(prep_entry(name, prep, launches) for name in (
             "render_depth", "tsdf_fuse")),
+        dict(name="adam", route="cuda",
+             source="rfdnet_tpu_torch/csrc/adam.cu", replaces=None,
+             launches=launches["train"].get("adam", 0),
+             launches_by_path={path: counts.get("adam", 0)
+                               for path, counts in launches.items()},
+             **{k: adam[k] for k in (
+                 "leaves", "elements", "chunks", "max_abs_err", "ms",
+                 "step_ms", "step_host_ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms", "library_max_abs_err")}),
     ]
 
 
@@ -4119,6 +4292,9 @@ def main() -> int:
     cbn_rows = phase_cbn(model, dev)
     torch.cuda.empty_cache()
     done("cbn_decode")
+    adam = phase_adam(dev)
+    torch.cuda.empty_cache()
+    done("adam")
     launches, grids, valid, meshes = phase_slice(model, data, cfg)
     phase_mesh(model, cfg, grids, valid, meshes)
     phase_reference(model, cfg)
@@ -4173,7 +4349,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": kernel_summary(
         fps_rows, fps_batch, fps_flag_off, cbn_rows, launches, test_cbn,
-        mise_cbn, prep)}), flush=True)
+        mise_cbn, prep, adam)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 # csrc/<name>.cu, nvcc
 KERNELS = ("fps", "cbn_decoder", "cbn_decoder_bf16", "render_depth",
-           "tsdf_fuse")
+           "tsdf_fuse", "adam")
 HOST_LIBS = ("meshing", "simplify", "kdtree")  # csrc/<name>.cpp, g++
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -178,9 +178,10 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if t.dim() != len(shape) or any(
-        s is not None and s != d for s, d in zip(shape, t.shape)
-    ):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    size = tuple(t.shape)
+    if size != shape and (len(size) != len(shape) or any(
+        s is not None and s != d for s, d in zip(shape, size)
+    )):
+        raise ValueError(f"{name}: shape {size}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")

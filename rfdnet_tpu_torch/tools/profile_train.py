@@ -42,7 +42,8 @@ port), and with `--bf16` also 989 TFLOP/s, the bf16 tensor-core rate of
 the shared MLPs' products (`data.mlp_bf16`, `mlp_dtype=torch.bfloat16`).
 
 Each stage also prints its kernel launches in one call (the counters
-`ops.fps.launches` and `ops.cbn_decode.launches` of a `recording()`) and
+`ops.fps.launches`, `ops.cbn_decode.launches` and `ops.adam.launches` of
+a `recording()`) and
 the spans that one more call opened (`spans`: device ms of each, on the
 CPU host ms; the train step's `train.*` and the model's `iscnet.*`), and
 the card's name and power limit (`nvidia-smi`) head the output. `--trace PATH` writes one `torch.profiler` trace (CPU and
@@ -177,12 +178,13 @@ def count_flops(fn) -> int:
 
 
 def launches_of(fn, device: torch.device) -> dict:
-    """The FPS and CBN kernel launches of one call of fn."""
+    """The FPS, CBN and Adam kernel launches of one call of fn."""
     with profiling.recording() as rec:
         fn()
         sync(device)
     return {"fps": rec.counter("ops.fps.launches"),
-            "cbn_decode": rec.counter("ops.cbn_decode.launches")}
+            "cbn_decode": rec.counter("ops.cbn_decode.launches"),
+            "adam": rec.counter("ops.adam.launches")}
 
 
 def spans_of(fn) -> dict:

@@ -52,7 +52,8 @@ def test_every_stage_runs_on_cpu():
     assert [r["stage"] for r in rows] == list(pt.stage_names(B, N).values())
     for key, r in zip(pt.stage_names(B, N), rows):
         assert r["ms"] > 0, r
-        assert r["launches"] == {"fps": 0, "cbn_decode": 0}  # plain on CPU
+        assert r["launches"] == {"fps": 0, "cbn_decode": 0,
+                                 "adam": 0}  # plain on CPU
         if key in pt.NO_FLOPS:
             assert r["flops"] is None and r["tflops"] is None
         else:
